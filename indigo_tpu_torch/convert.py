@@ -1,0 +1,56 @@
+"""Carry a reference pipeline's arrays across to the port.
+
+``state_from_reference_arrays`` gathers the numpy arrays that define an
+``indigo_tpu`` ``SenseRecon`` — the raw Toeplitz spectrum, coil maps,
+sorted DCF weights, sample permutation, deapodization, the tile plan's
+``tid``/``wfac`` and geometry, ``lamda`` and ``iters`` — into one checked
+dict; ``SenseRecon.from_arrays(state, device)`` builds the port's pipeline
+from it with no geometry recomputed. Both packages then solve on identical
+state: the port's counterpart of loading checkpoint weights. This module
+takes numpy arrays only and imports nothing of the reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["state_from_reference_arrays"]
+
+
+def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
+                                wfac, grid_shape, tile, ext, nt, pad_lo,
+                                width, lamda, iters):
+    """Check and normalise the arrays of a reference SenseRecon.
+
+    Tf: raw (natural frequency order) doubled-grid spectrum, 2x the image
+    shape; maps (nc, *img); w_sorted (nc*M,); perm (M,); deapod (*img);
+    tid (M, S); wfac: one (M, n_d, t_d) array per axis.
+    """
+    maps = np.asarray(maps, np.complex64)
+    nc, img = maps.shape[0], tuple(maps.shape[1:])
+    Tf = np.asarray(Tf, np.float32)
+    if Tf.shape != tuple(2 * s for s in img):
+        raise ValueError(f"Tf shape {Tf.shape} is not 2x image {img}")
+    perm = np.asarray(perm, np.int64)
+    M = len(perm)
+    tid = np.asarray(tid, np.int32)
+    wfac = [np.asarray(w, np.float32) for w in wfac]
+    if tid.shape[0] != M or any(w.shape[0] != M for w in wfac):
+        raise ValueError("tile plan and perm disagree on the sample count")
+    if len(wfac) != len(img) or len(grid_shape) != len(img):
+        raise ValueError("tile plan rank differs from the image rank")
+    w_sorted = np.asarray(w_sorted, np.float32).ravel()
+    if w_sorted.shape[0] != nc * M:
+        raise ValueError(f"w_sorted has {w_sorted.shape[0]} entries, "
+                         f"expected {nc}x{M}")
+    deapod = np.asarray(deapod, np.float32)
+    if deapod.shape != img:
+        raise ValueError(f"deapod shape {deapod.shape} != image {img}")
+    return {
+        "Tf": Tf, "maps": maps, "w_sorted": w_sorted, "perm": perm,
+        "deapod": deapod, "tid": tid, "wfac": wfac,
+        "grid_shape": tuple(int(g) for g in grid_shape),
+        "tile": tuple(int(t) for t in tile),
+        "ext": tuple(int(e) for e in ext), "nt": tuple(int(n) for n in nt),
+        "pad_lo": tuple(int(p) for p in pad_lo), "width": int(width),
+        "lamda": float(lamda), "iters": int(iters),
+    }

@@ -1,0 +1,282 @@
+"""End-to-end SENSE reconstruction pipeline (the serving layer).
+
+Counterpart of ``indigo_tpu/models/recon.py``: build the geometry once
+(gridding plan, Toeplitz spectrum, DCF), keep the payloads on the device,
+then reconstruct many acquisitions.
+
+    recon = SenseRecon(traj, maps, lamda=1e-2, iters=30, device="cuda")
+    img = recon(y)            # y in the user's sample order, coil-major
+
+All public inputs/outputs are in the USER's trajectory order.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.dft_cuda import kernel_spectrum, supported
+from ..ops.dft_fft import block_spectrum
+from ..parallel.recon import sense_normal_batched, batched_cg
+from ..toeplitz import toeplitz_kernel
+from .sense import sense_nufft_op
+
+__all__ = ["SenseRecon"]
+
+
+def _jacobi(Tf, maps, lamda):
+    """diag(normal op + lamda I) = mean(Tf) * sum_c |m_c|^2 + lamda,
+    inverted (flat float32)."""
+    dg = float(np.mean(Tf)) * np.sum(np.abs(maps) ** 2, axis=0) + lamda
+    return (1.0 / np.maximum(dg, 1e-30)).astype(np.float32).ravel()
+
+
+class SenseRecon(nn.Module):
+    """Multi-coil NUFFT SENSE reconstruction pipeline.
+
+    traj: (M, d) in cycles/pixel [-0.5, 0.5); maps: (nc, *img_shape).
+    dcf: None | 'radial' (analytic |k|^(d-1) ramp) | (M,) weights in user
+    order — folded into the normal equations (A^H W A x = A^H W y); the
+    'pipe_menon' DCF is not ported yet. The CG runs on the Toeplitz-embedded
+    normal operator; the gridded operator serves ``simulate`` and the rhs.
+
+    lamda: None picks 1e-3 * |Tf|_max floored at the gridding-error
+    stability scale (``lamda_floor``); an explicit value is used verbatim,
+    with a warning below the floor. tol: 0 runs exactly ``iters`` CG steps;
+    > 0 freezes the solve once ||r|| <= tol*||b|| and ``last_iters`` reports
+    the count taken. precond: None or 'jacobi'. coil_chunk: coils per
+    normal-op call. device: where the payloads live and the solve runs. On
+    CUDA, 3D volumes the kernel takes (``ops.dft_cuda.supported``) run the
+    normal op through the CUDA kernel (``layout == "kernel"``); everything
+    else runs the plain torch pipeline (``"block"``).
+    """
+
+    def __init__(self, traj, maps, oversamp=1.25, width=4, lamda=None,
+                 iters=30, tol=0.0, precond=None, dcf="radial",
+                 coil_chunk=None, device="cpu"):
+        super().__init__()
+        traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
+        maps = np.asarray(maps, dtype=np.complex64)
+        img_shape = maps.shape[1:]
+        d = traj.shape[1]
+        if dcf is None:
+            w = np.ones(len(traj), np.float32)
+        elif isinstance(dcf, str) and dcf == "radial":
+            w = (np.sum(traj ** 2, axis=1) ** ((d - 1) / 2.0)
+                 + (0.5 / max(img_shape)) ** (d - 1)).astype(np.float32)
+            w /= w.max()
+        elif isinstance(dcf, str):
+            raise NotImplementedError(
+                f"dcf={dcf!r} is not ported yet (ROADMAP Queue 1, item 7)")
+        else:
+            w = np.asarray(dcf, np.float32).ravel()
+
+        A, plan = sense_nufft_op(traj, maps, oversamp=oversamp, width=width)
+        w_sorted = np.tile(w[plan.perm], maps.shape[0]).astype(np.float32)
+        Tf, self.kernel_info = toeplitz_kernel(
+            traj, img_shape, oversamp=oversamp, width=width, weights=w,
+            return_info=True, warn=False, device=device)
+        # Stability floor: the restricted Toeplitz operator is PSD up to
+        # gridding error, of order the KB aliasing amplitude 10^(1-width)
+        # (3x worse below 1.25x oversampling); the default lamda is floored
+        # there, an explicit one is kept and warned about.
+        eps = 10.0 ** (1 - width) * (3.0 if oversamp < 1.25 else 1.0)
+        self.lamda_floor = eps * self.kernel_info["max"]
+        if lamda is None:
+            lamda = max(1e-3 * self.kernel_info["max"], self.lamda_floor)
+        elif lamda < self.lamda_floor:
+            warnings.warn(
+                f"SenseRecon: lamda={lamda:.3g} is below the gridding-error "
+                f"stability floor {self.lamda_floor:.3g} (kernel width="
+                f"{width}, oversamp={oversamp}); CG may converge slowly or "
+                f"stall on the indefinite part of the Toeplitz spectrum.",
+                stacklevel=2)
+        self._setup(A, plan, Tf, maps, w_sorted, lamda, iters, tol,
+                    precond, coil_chunk, device)
+
+    @classmethod
+    def from_arrays(cls, state, device="cpu", precond=None, tol=0.0,
+                    coil_chunk=None):
+        """Build the pipeline from a state of numpy arrays (see
+        ``convert.state_from_reference_arrays``) without recomputing any
+        geometry — the port's way of loading the reference pipeline's
+        weights."""
+        from ..operators import Diag, GridDFT, KronI, VStack
+        from ..ops.tile_interp import TileInterpPlan
+        from .sense import NufftPlan
+
+        maps = np.asarray(state["maps"], np.complex64)
+        nc, img_shape = maps.shape[0], tuple(maps.shape[1:])
+        tplan = TileInterpPlan(
+            state["tid"], state["wfac"], state["grid_shape"], state["tile"],
+            state["ext"], state["nt"], state["pad_lo"], state["width"])
+        deapod = np.asarray(state["deapod"], np.float32)
+        coils = VStack(
+            [Diag((deapod * maps[c]).ravel().astype(np.complex64),
+                  name=f"Map{c}") for c in range(nc)], name="Coils")
+        A = KronI(nc, GridDFT(tplan, img_shape, name="GridDFT"),
+                  name="PerCoil") * coils
+        plan = NufftPlan(img_shape, tplan.grid_shape, None, tplan.width,
+                         None, np.asarray(state["perm"], np.int64), None,
+                         deapod=deapod)
+        obj = cls.__new__(cls)
+        nn.Module.__init__(obj)
+        obj.kernel_info = None
+        obj.lamda_floor = None
+        obj._setup(A, plan, np.asarray(state["Tf"], np.float32), maps,
+                   np.asarray(state["w_sorted"], np.float32),
+                   float(state["lamda"]), int(state["iters"]), tol, precond,
+                   coil_chunk, device)
+        return obj
+
+    def _setup(self, A, plan, Tf, maps, w_sorted, lamda, iters, tol,
+               precond, coil_chunk, device):
+        self.device = torch.device(device)
+        self.nc = maps.shape[0]
+        self.img_shape = tuple(maps.shape[1:])
+        self.lamda = float(lamda)
+        self.iters = int(iters)
+        self.tol = float(tol)
+        self.coil_chunk = coil_chunk
+        self._last_k = None
+        self.A = A
+        self.plan = plan
+        if self.device.type == "cuda" and supported(self.img_shape):
+            self.layout = "kernel"
+            Tk = kernel_spectrum(Tf)
+        else:
+            self.layout = "block"
+            Tk = block_spectrum(Tf)
+        self.register_buffer("Tf", torch.from_numpy(Tk))
+        self.register_buffer("maps", torch.from_numpy(maps))
+        self.register_buffer("wd", torch.from_numpy(w_sorted))
+        perm = np.asarray(plan.perm, np.int64)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        self.register_buffer("perm", torch.from_numpy(perm))
+        self.register_buffer("inv_perm", torch.from_numpy(inv))
+        if precond == "jacobi":
+            pd = torch.from_numpy(_jacobi(Tf, maps, self.lamda))
+        elif precond is None:
+            pd = None
+        else:
+            raise ValueError(f"unknown precond {precond!r}")
+        self.register_buffer("pd", pd)
+        self.to(self.device)
+
+    @property
+    def n_samples(self):
+        return self.plan.n_samples
+
+    def _samples(self, y):
+        """User-order k-space (numpy or tensor) -> flat complex64 tensor on
+        the pipeline's device."""
+        if isinstance(y, torch.Tensor):
+            y = y.to(self.device, torch.complex64).reshape(-1)
+        else:
+            y = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(y).reshape(-1), dtype=np.complex64)).to(
+                    self.device)
+        if y.shape[0] != self.nc * self.n_samples:
+            raise ValueError(f"expected {self.nc}x{self.n_samples} "
+                             f"samples, got {tuple(y.shape)}")
+        return y
+
+    def rhs(self, y):
+        """A^H W y for user-order y: (1, n) complex64 on the device."""
+        ys = self._samples(y).reshape(self.nc, -1)[:, self.perm].reshape(-1)
+        r = self.A.apply((self.wd * ys)[:, None], adjoint=True)
+        return r.reshape(1, -1)
+
+    def solve(self, rhs):
+        """CG on the Toeplitz normal op: (image (n,), resids (iters,),
+        iteration count (1,) int32), all on the device."""
+        pd = self.pd
+        precond = None if pd is None else (lambda r: r * pd[None, :])
+        xs, resids, k = batched_cg(
+            lambda v: sense_normal_batched(
+                self.Tf, self.maps, v, coil_chunk=self.coil_chunk,
+                layout=self.layout),
+            rhs, lamda=self.lamda, iters=self.iters, tol=self.tol,
+            precond=precond, return_iters=True)
+        return xs[0], resids[:, 0], k
+
+    def simulate(self, x):
+        """k-space (user sample order, coil-major, numpy) from an image."""
+        if isinstance(x, torch.Tensor):
+            x = x.to(self.device, torch.complex64).reshape(-1)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(x).reshape(-1), dtype=np.complex64)).to(
+                    self.device)
+        y = self.A.apply(x[:, None])[:, 0]
+        y = y.reshape(self.nc, -1)[:, self.inv_perm].reshape(-1)
+        return y.cpu().numpy()
+
+    def forward(self, y, return_resids=False, output="host"):
+        """Reconstruct an image from k-space y (user order, coil-major
+        (nc*M,) or (nc, M), numpy or tensor).
+
+        output: 'host' returns a numpy complex64 image; 'device' returns the
+        complex64 tensor on the pipeline's device without waiting for it.
+        ``last_iters`` is fetched lazily on first read.
+        """
+        if output not in ("host", "device"):
+            raise ValueError(f"unknown output {output!r}")
+        x, resids, k = self.solve(self.rhs(y))
+        self._last_k = k
+        x = x.reshape(self.img_shape)
+        if output == "host":
+            x = x.cpu().numpy()
+        if return_resids:
+            return x, resids.cpu().numpy()
+        return x
+
+    def stream(self, ys, output="host"):
+        """Reconstruct a sequence of acquisitions, yielding images in order.
+
+        With output='host' on a CUDA device, each result's device->host copy
+        is enqueued (pinned buffer, ``non_blocking``, an event) right behind
+        its own solve and before the next acquisition's solve, so the copy of
+        k overlaps the solve of k+1. output='device' yields the device
+        tensors and enqueues no copy: overlap is then the caller's choice.
+        """
+        if output not in ("host", "device"):
+            raise ValueError(f"unknown output {output!r}")
+        pinned = output == "host" and self.device.type == "cuda"
+
+        def enqueue(x):
+            if not pinned:
+                return x
+            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            buf.copy_(x, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            return buf, ev
+
+        def fetch(item):
+            if pinned:
+                buf, ev = item
+                ev.synchronize()
+                return buf.numpy()
+            return item.cpu().numpy() if output == "host" else item
+
+        prev = None
+        for y in ys:
+            item = enqueue(self(y, output="device"))
+            if prev is not None:
+                yield fetch(prev)
+            prev = item
+        if prev is not None:
+            yield fetch(prev)
+
+    @property
+    def last_iters(self):
+        """CG iterations taken by the most recent solve (fetched lazily)."""
+        if self._last_k is None:
+            return None
+        if isinstance(self._last_k, torch.Tensor):
+            self._last_k = int(self._last_k[0])
+        return self._last_k

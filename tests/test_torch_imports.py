@@ -1,0 +1,60 @@
+"""indigo_tpu_torch stands alone: it imports neither jax nor indigo_tpu (the
+GPU machine has no jax), and builds no kernel at import time."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "indigo_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "indigo_tpu")
+
+
+def _sources():
+    out = []
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, indigo_tpu_torch, indigo_tpu_torch.models, "
+            "indigo_tpu_torch.ops.dft_cuda, indigo_tpu_torch.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(','.join(bad))\n"
+            "assert 'indigo_tpu_torch.ops._build' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", res.stdout
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, PKG))
+def test_source_has_no_jax_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+def test_chip_smoke_has_no_jax_import():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, n

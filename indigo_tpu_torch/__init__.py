@@ -6,13 +6,22 @@ pipelines are ``nn.Module``s holding their arrays as buffers, complex data
 is native complex64, and the device is explicit. It imports torch, numpy
 and scipy only (never jax, never indigo_tpu).
 
-The slice ported so far is the 3D CG-SENSE serving path:
-``models.SenseRecon`` -> ``models.sense.sense_nufft_op`` (tile gridding +
-``GridDFT``) -> ``toeplitz.toeplitz_kernel`` -> ``parallel.recon``
-(``batched_cg`` on ``sense_normal_batched``), whose normal operator runs the
-hand-written CUDA kernel in ``csrc/sense_normal.cu`` on the GPU.
+The slices ported so far:
+
+* the 3D CG-SENSE serving path: ``models.SenseRecon`` ->
+  ``models.sense.sense_nufft_op`` (tile gridding + ``GridDFT``) ->
+  ``toeplitz.toeplitz_kernel`` -> ``parallel.recon`` (``batched_cg`` on
+  ``sense_normal_batched``), whose normal operator runs the hand-written
+  CUDA kernel in ``csrc/sense_normal.cu`` on the GPU;
+* the sparse-gridding path: ``sense_nufft_op(..., interp="sparse")``
+  (``SpMatrix`` . ``Perm`` . ``CenteredDFT``) solved with ``cg`` on the
+  operator algebra, whose gridding SpMMs run the hand-written CUDA kernels
+  K3 (jag) and K4 (blocked-ELL) in ``csrc/block_spmm.cu``.
 """
 from . import utils
+from .operators import CenteredDFT, Perm, Scale, SpMatrix
+from .solvers import cg
 from .utils import rand64c, rel_err
 
-__all__ = ["utils", "rand64c", "rel_err"]
+__all__ = ["utils", "rand64c", "rel_err", "SpMatrix", "Perm",
+           "CenteredDFT", "Scale", "cg"]

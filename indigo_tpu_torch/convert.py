@@ -6,14 +6,20 @@ sorted DCF weights, sample permutation, deapodization, the tile plan's
 ``tid``/``wfac`` and geometry, ``lamda`` and ``iters`` — into one checked
 dict; ``SenseRecon.from_arrays(state, device)`` builds the port's pipeline
 from it with no geometry recomputed. Both packages then solve on identical
-state: the port's counterpart of loading checkpoint weights. This module
-takes numpy arrays only and imports nothing of the reference.
+state: the port's counterpart of loading checkpoint weights.
+
+``sparse_from_reference`` carries a reference block-sparse matrix
+(``BlockedJag``, ``BlockedELL``, ``ElementELL``) across, and
+``spmatrix_from_reference`` a reference ``SpMatrix`` leaf, so that both
+packages apply the same tiles. This module reads the reference objects'
+arrays through numpy only and imports nothing of the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["state_from_reference_arrays"]
+__all__ = ["state_from_reference_arrays", "sparse_from_reference",
+           "spmatrix_from_reference"]
 
 
 def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
@@ -54,3 +60,49 @@ def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
         "pad_lo": tuple(int(p) for p in pad_lo), "width": int(width),
         "lamda": float(lamda), "iters": int(iters),
     }
+
+
+def _host(a):
+    """numpy array of a reference payload; a split-complex pair (``re`` and
+    ``im`` planes) becomes complex64."""
+    if a is None:
+        return None
+    if hasattr(a, "re") and hasattr(a, "im"):
+        return (np.asarray(a.re) + 1j * np.asarray(a.im)).astype(
+            np.complex64)
+    return np.asarray(a)
+
+
+def sparse_from_reference(m):
+    """The port's BlockedJag / BlockedELL / ElementELL with the arrays of
+    the reference object ``m`` (same class name)."""
+    import torch
+
+    from . import sparse
+
+    def t(a):
+        a = _host(a)
+        return None if a is None else torch.from_numpy(np.array(a))
+
+    kind = type(m).__name__
+    if kind == "BlockedJag":
+        return sparse.BlockedJag(t(m.data), t(m.bcols), t(m.brows), m.shape,
+                                 nnz=m.nnz)
+    if kind == "BlockedELL":
+        return sparse.BlockedELL(t(m.data), t(m.cols), m.shape, nnz=m.nnz)
+    if kind == "ElementELL":
+        return sparse.ElementELL(t(m.data), t(m.cols), m.shape, nnz=m.nnz,
+                                 adj_rows=t(m.adj_rows),
+                                 adj_vals=t(m.adj_vals),
+                                 adj_segs=t(m.adj_segs))
+    raise TypeError(f"not a reference sparse format: {kind}")
+
+
+def spmatrix_from_reference(op):
+    """The port's SpMatrix built from a reference SpMatrix's ``ell`` and
+    ``ellH`` tiles (no conversion from CSR on this side)."""
+    from .operators import SpMatrix
+
+    ellH = None if op.ellH is None else sparse_from_reference(op.ellH)
+    return SpMatrix(None, name=op._name, _ell=sparse_from_reference(op.ell),
+                    _ellH=ellH)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, ``_build/libindigo_kernels.so`` inside the
-package, and loaded with ``ctypes``. The build runs on first use, from the
-package's own sources only, and again whenever their content hash changes
-(the hash is stored beside the library). Nothing is built at import time.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` — one ``nvcc``
+per source, all started together — and the objects are linked into one
+shared library with a plain C interface, ``_build/libindigo_kernels.so``
+inside the package, loaded with ``ctypes``. The build runs on first use,
+from the package's own sources only, and again whenever their content hash
+changes (the hash is stored beside the library). Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _LIB_NAME = "libindigo_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -54,16 +55,34 @@ def _nvcc():
 
 def _build(srcs, out, stamp, digest):
     os.makedirs(build_dir(), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [
-        s for s in srcs if s.endswith(".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = os.path.join(build_dir(), "build.log")
-    with open(log, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [os.path.join(build_dir(), f"{os.path.basename(s)}.{tag}.o")
+            for s in cus]
+    cmds = [[nvcc] + NVCC_FLAGS + ["-c", s, "-o", o]
+            for s, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    runs = [(c, p.returncode, o, e)
+            for c, p, (o, e) in zip(cmds, procs, outs)]
+    tmp = f"{out}.{tag}"
+    if all(rc == 0 for _, rc, _, _ in runs):
+        link = [nvcc] + NVCC_FLAGS[:2] + ["-shared", "-o", tmp] + objs
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.returncode, proc.stdout, proc.stderr))
+    with open(os.path.join(build_dir(), "build.log"), "w") as f:
+        for c, rc, o, e in runs:
+            f.write(" ".join(c) + f"\n(rc {rc})\n" + o + e)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, rc, e) for c, rc, _, e in runs if rc != 0]
+    if failed:
+        c, rc, e = failed[0]
+        raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(c)}\n"
+                           f"{e[-4000:]}")
     os.replace(tmp, out)
     with open(stamp, "w") as f:
         f.write(digest)
@@ -94,8 +113,11 @@ def _declare(lib):
     lib.indigo_sense_normal_a.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
     lib.indigo_sense_normal_b.argtypes = [P, P, P, P, I, I, I, I, P]
     lib.indigo_sense_normal_c.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.indigo_jag_spmm.argtypes = [P, P, P, I, I, P, P, I, I, I, P]
+    lib.indigo_ell_spmm.argtypes = [P, P, I, I, I, P, P, I, I, I, P]
     for fn in (lib.indigo_sense_normal_a, lib.indigo_sense_normal_b,
-               lib.indigo_sense_normal_c):
+               lib.indigo_sense_normal_c, lib.indigo_jag_spmm,
+               lib.indigo_ell_spmm):
         fn.restype = I
     lib.indigo_error_string.argtypes = [I]
     lib.indigo_error_string.restype = ctypes.c_char_p

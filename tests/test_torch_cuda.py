@@ -78,3 +78,103 @@ def test_recon_kernel_path_matches_cpu_plain_path(cuda):
     xc, rc = cpu(y, return_resids=True)
     assert rel_err(xg, xc) < 1e-4
     assert rel_err(rg, rc) < 1e-4
+
+
+# ---- block-sparse SpMM kernels K3 (jag) and K4 (blocked-ELL) -------------
+
+SPMM_SHAPES = [(64, 256, 8, 0.05), (100, 300, 4, 0.02), (257, 640, 16, 0.01),
+               (40, 1000, 8, 0.001), (8, 128, 128, 0.5), (300, 129, 7, 0.05)]
+
+
+def _sparse(rng, m, n, density):
+    import scipy.sparse as sp
+
+    A = sp.random(m, n, density=density, random_state=rng, format="csr",
+                  dtype=np.float32)
+    A.data = rng.standard_normal(A.nnz).astype(np.float32)
+    return A
+
+
+@pytest.mark.parametrize("bm", [8, 16, 128])
+@pytest.mark.parametrize("m,n,k,density", SPMM_SHAPES)
+def test_spmm_kernels_match_plain(cuda, bm, m, n, k, density):
+    """K3 and K4 against their plain versions on the card at 1e-5 (f32 FMA
+    in another order than cuBLAS's batched product)."""
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import (bell_spmm, csr_to_bell, csr_to_jag,
+                                         jag_spmm)
+
+    rng = np.random.default_rng(4)
+    A = _sparse(rng, m, n, density)
+    x = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32))
+    x = x.to(cuda)
+    for conv, kern, plain in ((csr_to_jag, jag_spmm_cuda, jag_spmm),
+                              (csr_to_bell, ell_spmm_cuda, bell_spmm)):
+        mat = conv(A, bm=bm).to(cuda)
+        before = kern.launches
+        y = kern(mat, x)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert y.shape == (m, k)
+        assert rel_err(y, plain(mat, x)) < 1e-5
+        assert rel_err(y, A @ x.cpu().numpy()) < 1e-5
+
+
+def test_spmm_kernel_empty_rows_exactly_zero(cuda):
+    import scipy.sparse as sp
+
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+
+    A = sp.csr_matrix((np.ones(1, np.float32), ([17], [5])), shape=(64, 256))
+    x = torch.randn(256, 4, device=cuda)
+    for conv in (csr_to_jag, csr_to_bell):
+        y = spmm(conv(A).to(cuda), x).cpu().numpy()
+        assert (y[:17] == 0).all() and (y[18:] == 0).all()
+        np.testing.assert_array_equal(y[17], x[5].cpu().numpy())
+
+
+def test_spmm_dispatch_complex_x(cuda):
+    """Complex x runs the kernel once on its view_as_real columns; a
+    complex matrix takes the counted plain path."""
+    import scipy.sparse as sp
+
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+    from indigo_tpu_torch.sparse import csr_to_jag
+
+    rng = np.random.default_rng(5)
+    A = _sparse(rng, 60, 200, 0.05)
+    x = rand64c(200, 3, rng=rng)
+    before = jag_spmm_cuda.launches
+    y = spmm(csr_to_jag(A).to(cuda), torch.from_numpy(x).to(cuda))
+    assert jag_spmm_cuda.launches == before + 1
+    assert rel_err(y, A @ x) < 1e-5
+    Ac = (A * (1 + 1j)).astype(np.complex64)
+    plain = spmm.plain_cuda_calls
+    y = spmm(csr_to_jag(sp.csr_matrix(Ac)).to(cuda),
+             torch.from_numpy(x).to(cuda))
+    assert spmm.plain_cuda_calls == plain + 1
+    assert rel_err(y, Ac @ x) < 1e-5
+
+
+def test_spmm_kernels_reject_what_they_do_not_take(cuda):
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+
+    rng = np.random.default_rng(6)
+    A = _sparse(rng, 64, 256, 0.05)
+    for conv, kern in ((csr_to_jag, jag_spmm_cuda),
+                       (csr_to_bell, ell_spmm_cuda)):
+        mat = conv(A).to(cuda)
+        x = torch.randn(256, 8, device=cuda)
+        with pytest.raises(TypeError):
+            kern(mat, x.double())
+        with pytest.raises(ValueError):
+            kern(mat, torch.randn(8, 256, device=cuda).T)
+        with pytest.raises(ValueError):
+            kern(conv(A), x)
+        with pytest.raises(ValueError):
+            kern(mat, x[:100])
+        with pytest.raises(ValueError):
+            kern(conv(A, bm=24).to(cuda), x)

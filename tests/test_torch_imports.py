@@ -10,6 +10,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "indigo_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "indigo_tpu")
+GPU_ONLY = ("triton",)
 
 
 def _sources():
@@ -21,9 +22,11 @@ def _sources():
 
 def test_import_leaves_jax_out():
     code = ("import sys, indigo_tpu_torch, indigo_tpu_torch.models, "
-            "indigo_tpu_torch.ops.dft_cuda, indigo_tpu_torch.convert\n"
+            "indigo_tpu_torch.ops.dft_cuda, indigo_tpu_torch.convert, "
+            "indigo_tpu_torch.sparse, indigo_tpu_torch.solvers, "
+            "indigo_tpu_torch.ops.ell_spmm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]\n"
+            f"{FORBIDDEN + GPU_ONLY!r}]\n"
             "print(','.join(bad))\n"
             "assert 'indigo_tpu_torch.ops._build' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -32,11 +32,31 @@ raises and exits non-zero):
      SpMM took the plain path on the GPU; the same recipe at 64^2/4 coils on
      the GPU and on the CPU (<= 1e-4); and a 128^2 solve whose gridding leaf
      is blocked-ELL (K4) against the jag (K3) solve (<= 1e-4).
+  6a. K2 kernel vs plain: toeplitz_apply_cuda against
+     toeplitz_apply_reference on the card at 8^3 .. 256^3 (rel_err <= 1e-4),
+     and both times (plain, kernel, kernel, plain) plus per-kernel ms at
+     128^3 and 256^3 with B = 8.
+  6b. Toeplitz operator-tree path: the reference's 3D CG-SENSE recipe with
+     Pipe-Menon DCF at the serving-lane size (256^3, 8 coils, the same
+     kooshball, oversamp 1.25, width 4): pipe_menon_dcf (20 iterations, on
+     the GPU), toeplitz_kernel, sense_nufft_op, sense_normal_toeplitz
+     (coils.H * KronI(8, ToeplitzNormal) * coils), rhs = A^H W y, then two
+     solves of cg(N, rhs, lamda, tol=0, maxiter=10, history=True) and one
+     on the noise-free data. Checks
+     finite, decreasing residuals, a finite image, exactly 33 K2 launches
+     per solve, no plain Toeplitz apply and no K1 launch on the GPU.
+  6c. cross-checks: one tree apply (K2) against sense_normal_batched
+     (layout "kernel", K1) on the same spectrum; the 256^3 tree solve
+     against sense_batch_recon (K1, coil_chunk 4) at the same lamda and
+     iterations; the recipe at 32^3/4 coils on the GPU and on the CPU (and
+     the device DCF on the GPU against the host DCF); SenseRecon(dcf=
+     "pipe_menon") at 32^3 on the GPU and on the CPU. All <= 1e-4.
 The line before the last holds the per-kernel JSON record; the last line is
 the result object.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -105,13 +125,37 @@ def phase_device():
         cuda=torch.version.cuda)
 
 
+def kernel_registers(ptxas_log):
+    """[(kernel, registers)] from nvcc's -Xptxas -v output, each entry
+    function named as in the source (kern_c<false>, block_spmm<16,16,true>)."""
+    regs, name = [], None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            # the digit is the mangled length prefix, which the namespace
+            # tag of the file (..._block_spmm_cu_...) does not have
+            k = re.search(r"(?<=\d)(kern_[abc]|block_spmm)(I(?:L[ib]\d+E)+E)?",
+                          name)
+            args = re.findall(r"L([ib])(\d+)E", k.group(2) or "") if k else []
+            vals = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in args]
+            label = (k.group(1) + (f"<{','.join(vals)}>" if vals else "")
+                     if k else name)
+            regs.append((label, int(m.group(1))))
+            name = None
+    return regs
+
+
 def phase_build():
     t0 = time.time()
     from indigo_tpu_torch.ops._build import load_library, build_dir
     load_library()
     with open(os.path.join(build_dir(), "build.log")) as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    log("build", t0, ptxas="|".join(regs))
+        regs = kernel_registers(f.read())
+    log("build", t0, registers=",".join(f"{k}:{r}" for k, r in regs))
 
 
 def timed(fn, reps):
@@ -366,11 +410,14 @@ def gridding_leaf(A):
 def reset_counts():
     from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
-        sense_normal_cuda, sense_normal_reference)
+        sense_normal_cuda, sense_normal_reference, toeplitz_apply_cuda,
+        toeplitz_apply_reference)
     from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
-    for fn in (sense_normal_cuda, jag_spmm_cuda, ell_spmm_cuda):
+    for fn in (sense_normal_cuda, toeplitz_apply_cuda, jag_spmm_cuda,
+               ell_spmm_cuda):
         fn.launches = 0
     sense_normal_reference.cuda_calls = 0
+    toeplitz_apply_reference.cuda_calls = 0
     spmm.plain_cuda_calls = 0
 
 
@@ -628,6 +675,258 @@ def build_radial_ops():
     return ops
 
 
+DCF_ITERS = 20
+
+
+def phase_toeplitz_kernels():
+    """Phase 6a: K2 (toeplitz_apply_cuda) against its plain version on the
+    card; times at 128^3 and 256^3 with B = 8 (the 8-coil batch of the
+    operator tree). Returns the worst abs error and the times."""
+    import torch
+    from indigo_tpu_torch.ops.dft_cuda import (
+        kernel_spectrum, toeplitz_apply_cuda, toeplitz_apply_reference)
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    cases = [((8, 8, 8), 2), ((8, 16, 24), 3), ((16, 136, 8), 1),
+             ((128, 128, 128), 8), ((256, 256, 256), NC)]
+    worst = 0.0
+    timing = {}
+    for shape, B in cases:
+        t0 = time.time()
+        Tf = rng.standard_normal(tuple(2 * s for s in shape)).astype(
+            np.float32)
+        T = torch.from_numpy(kernel_spectrum(Tf)).to(dev)
+        u = torch.from_numpy(rand64c(B, *shape, rng=rng)).to(dev)
+        out = toeplitz_apply_cuda(T, u)
+        ref = toeplitz_apply_reference(T, u)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        abs_err = float((out - ref).abs().max())
+        del out, ref
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"K2 vs plain at {shape} B={B}: rel_err "
+                                 f"{err:.3e}")
+        worst = max(worst, abs_err)
+        fields = dict(shape="x".join(map(str, shape)), B=B,
+                      rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
+        if shape[0] >= 128:
+            reps = 5 if shape[0] == 128 else 3
+            p1 = timed(lambda: toeplitz_apply_reference(T, u), reps)
+            k1 = timed(lambda: toeplitz_apply_cuda(T, u), reps)
+            k2 = timed(lambda: toeplitz_apply_cuda(T, u), reps)
+            p2 = timed(lambda: toeplitz_apply_reference(T, u), reps)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            toeplitz_apply_cuda(T, u, events=ev)
+            torch.cuda.synchronize()
+            per = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+            timing[shape[0]] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+            fields.update(kernel_ms=f"{k1:.2f},{k2:.2f}",
+                          plain_ms=f"{p1:.2f},{p2:.2f}",
+                          a_b_c_ms=",".join(f"{x:.2f}" for x in per))
+        del T, u
+        torch.cuda.empty_cache()
+        log("toeplitz_kernel", t0, **fields)
+    return worst, timing
+
+
+def tree_recipe(traj, maps, x_true, device, w=None, solves=1,
+                noise_free=False):
+    """The reference's 3D Toeplitz CG-SENSE recipe through the operator
+    tree (examples/multicoil_3d.py): Pipe-Menon DCF, the DCF-weighted
+    spectrum, the gridded SENSE operator for the data and the rhs, and
+    cg on coils.H * KronI(nc, ToeplitzNormal) * coils. ``w``: DCF weights
+    to use instead of computing them; ``solves`` solves of the noisy data,
+    then with ``noise_free`` one of the noise-free data. Returns the images,
+    residuals, lamda, DCF, spectrum, normal operator, rhs and the seconds
+    of each step."""
+    import torch
+    from indigo_tpu_torch import cg
+    from indigo_tpu_torch.models.sense import sense_nufft_op
+    from indigo_tpu_torch.noncart import pipe_menon_dcf
+    from indigo_tpu_torch.ops.dft_cuda import toeplitz_apply_cuda
+    from indigo_tpu_torch.toeplitz import sense_normal_toeplitz, \
+        toeplitz_kernel
+
+    img = maps.shape[1:]
+    nc = maps.shape[0]
+    grid = tuple(int(2 * round(s * OVERSAMP / 2)) for s in img)
+    sec = {}
+
+    def lap(key, t0):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sec[key] = time.time() - t0
+
+    t0 = time.time()
+    if w is None:
+        w = pipe_menon_dcf(traj, grid, width=WIDTH, iters=DCF_ITERS,
+                           device=device)
+    lap("dcf_s", t0)
+    t0 = time.time()
+    Tf, info = toeplitz_kernel(traj, img, oversamp=OVERSAMP, width=WIDTH,
+                               weights=w, return_info=True, warn=False,
+                               device=device)
+    lap("spectrum_s", t0)
+    t0 = time.time()
+    A, plan = sense_nufft_op(traj, maps, oversamp=OVERSAMP, width=WIDTH)
+    A = A.to(device)
+    N = sense_normal_toeplitz(Tf, maps).to(device)
+    lap("operator_s", t0)
+    wd = torch.from_numpy(np.tile(w[plan.perm], nc).astype(np.float32))
+    wd = wd[:, None].to(device)
+    xt = torch.from_numpy(np.ascontiguousarray(x_true.ravel()))[:, None]
+    y0 = A * xt.to(device)
+    y = add_noise(y0, SEED)
+    t0 = time.time()
+    rhs = A.H * (wd * y)
+    lap("rhs_s", t0)
+    # SenseRecon's rule: 1e-3 |Tf|_max, floored at the gridding error
+    eps = 10.0 ** (1 - WIDTH) * (3.0 if OVERSAMP < 1.25 else 1.0)
+    lam = max(1e-3 * info["max"], eps * info["max"])
+    out = dict(w=w, Tf=Tf, N=N, rhs=rhs, lamda=lam, sec=sec, solve_s=[],
+               launches=[])
+
+    def solve(b):
+        before = toeplitz_apply_cuda.launches
+        t0 = time.time()
+        x, cinfo = cg(N, b, lamda=lam, tol=0.0, maxiter=ITERS, history=True)
+        res = cinfo["resids"].cpu().numpy()
+        out["solve_s"].append(time.time() - t0)
+        out["launches"].append(toeplitz_apply_cuda.launches - before)
+        if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+            raise AssertionError(f"tree solve at {img}: residuals {res}")
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"tree solve at {img}: image not finite")
+        return x, res
+
+    for _ in range(solves):
+        out["x"], out["resids"] = solve(rhs)
+    if noise_free:
+        out["x_clean"], _ = solve(A.H * (wd * y0))
+    return out
+
+
+def toeplitz_leaf(N):
+    from indigo_tpu_torch.toeplitz import ToeplitzNormal
+    for mod in N.modules():
+        if isinstance(mod, ToeplitzNormal):
+            return mod
+    raise AssertionError("no ToeplitzNormal in the operator tree")
+
+
+def phase_tree_path():
+    """Phase 6b: the Toeplitz operator-tree recipe at 256^3 / 8 coils.
+    Returns the run's state for the cross-checks and its K2 launch count."""
+    import torch
+    from indigo_tpu_torch.ops.dft_cuda import (
+        sense_normal_cuda, toeplitz_apply_cuda, toeplitz_apply_reference)
+    from indigo_tpu_torch.utils import rel_err
+
+    t0 = time.time()
+    traj = kooshball_traj(NSPOKES, NREAD, seed=SEED)
+    maps = coil_maps(N, NC, seed=SEED)
+    x_true = phantom(N)
+    log("tree_data", t0, samples_per_coil=len(traj), coils=NC,
+        shape=f"{N}^3")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    st = tree_recipe(traj, maps, x_true, "cuda", solves=2, noise_free=True)
+    torch.cuda.synchronize()
+    launches = toeplitz_apply_cuda.launches
+    leaf = toeplitz_leaf(st["N"])
+    per_solve = 3 * (ITERS + 1)   # the initial residual is one apply
+    if leaf.method != "pallas":
+        raise AssertionError(f"tree path Toeplitz method {leaf.method}")
+    if st["launches"] != [per_solve] * 3 or launches != 3 * per_solve:
+        raise AssertionError(f"tree path K2 launches {st['launches']}, "
+                             f"expected {per_solve} per solve")
+    if toeplitz_apply_reference.cuda_calls or sense_normal_cuda.launches:
+        raise AssertionError("tree path left K2 (plain Toeplitz apply or "
+                             "K1 on the GPU)")
+    sec, res = st["sec"], st["resids"]
+    x = st["x"].cpu().numpy().reshape(x_true.shape)
+    x_clean = st.pop("x_clean").cpu().numpy().reshape(x_true.shape)
+    w = st["w"]
+    print(f"[tree_summary] dcf_s={sec['dcf_s']:.3f} "
+          f"spectrum_s={sec['spectrum_s']:.3f} "
+          f"operator_s={sec['operator_s']:.3f} rhs_s={sec['rhs_s']:.4f} "
+          f"first_s={st['solve_s'][0]:.3f} warm_s={st['solve_s'][1]:.3f} "
+          f"s_per_iter={st['solve_s'][1] / ITERS:.4f} "
+          f"lamda={st['lamda']:.4g} resid_first={res[0]:.4e} "
+          f"resid_last={res[-1]:.4e} "
+          f"rel_err_vs_phantom={rel_err(x, x_true):.4f} "
+          f"noise_free_rel_err_vs_phantom={rel_err(x_clean, x_true):.4f} "
+          f"noise_free_s={st['solve_s'][2]:.3f} "
+          f"dcf_min_max={w.min():.3e},{w.max():.3e} "
+          f"k2_launches={launches} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"seconds={time.time() - t0:.3f}", flush=True)
+    st["maps"] = maps
+    return st, launches
+
+
+def phase_tree_cross_checks(st):
+    """Phase 6c: the tree (K2) against K1 and the GPU against the CPU."""
+    import torch
+    from indigo_tpu_torch.models import SenseRecon
+    from indigo_tpu_torch.noncart import pipe_menon_dcf
+    from indigo_tpu_torch.parallel.recon import (
+        sense_batch_recon, sense_normal_batched)
+    from indigo_tpu_torch.utils import rel_err
+
+    t0 = time.time()
+    maps = torch.from_numpy(st["maps"]).to("cuda")
+    v = st["rhs"]
+    a = st["N"] * v
+    b = sense_normal_batched(toeplitz_leaf(st["N"]).T, maps, v.reshape(1, -1),
+                             layout="kernel")
+    err_apply = rel_err(a[:, 0], b[0])
+    del a, b
+    xs, _ = sense_batch_recon(torch.from_numpy(st["Tf"]).to("cuda"), maps,
+                              v.reshape(1, -1), lamda=st["lamda"],
+                              iters=ITERS, coil_chunk=COIL_CHUNK)
+    err_solve = rel_err(st["x"][:, 0], xs[0])
+    del xs, maps
+    for key, err in (("apply", err_apply), ("solve", err_solve)):
+        if not err <= PATH_TOL:
+            raise AssertionError(f"256^3 tree (K2) vs K1 {key}: rel_err "
+                                 f"{err:.3e}")
+    log("tree_vs_k1", t0, shape=f"{N}^3", nc=NC,
+        rel_err_apply=f"{err_apply:.3e}", rel_err_solve=f"{err_solve:.3e}")
+
+    t0 = time.time()
+    n, nc = 32, 4
+    traj = kooshball_traj(512, n, seed=SEED)
+    maps = coil_maps(n, nc, seed=SEED)
+    grid = tuple(int(2 * round(s * OVERSAMP / 2)) for s in (n,) * 3)
+    w_dev = pipe_menon_dcf(traj, grid, width=WIDTH, iters=DCF_ITERS,
+                           impl="device", device="cuda")
+    w = pipe_menon_dcf(traj, grid, width=WIDTH, iters=DCF_ITERS,
+                       impl="host")
+    err_w = rel_err(w_dev, w)
+    gpu = tree_recipe(traj, maps, phantom(n), "cuda", w=w)
+    cpu = tree_recipe(traj, maps, phantom(n), "cpu", w=w)
+    err_x = rel_err(gpu["x"], cpu["x"])
+    kw = dict(oversamp=OVERSAMP, width=WIDTH, iters=ITERS, coil_chunk=2,
+              dcf="pipe_menon")
+    rg = SenseRecon(traj, maps, device="cuda", **kw)
+    rc = SenseRecon(traj, maps, device="cpu", **kw)
+    y = rg.simulate(phantom(n))
+    err_sr = rel_err(rg(y), rc(y))
+    for key, err in (("dcf device vs host", err_w), ("tree recipe", err_x),
+                     ("SenseRecon pipe_menon", err_sr)):
+        if not err <= PATH_TOL:
+            raise AssertionError(f"32^3 GPU vs CPU {key}: rel_err {err:.3e}")
+    log("tree_small", t0, shape=f"{n}^3", nc=nc,
+        rel_err_dcf_device_vs_host=f"{err_w:.3e}",
+        rel_err_tree_gpu_vs_cpu=f"{err_x:.3e}",
+        rel_err_senserecon_pipe_menon_gpu_vs_cpu=f"{err_sr:.3e}")
+
+
 def main():
     phase_device()
     phase_build()
@@ -638,6 +937,12 @@ def main():
     k3_launches = phase_radial(ops)
     k4_launches = phase_radial_bell(ops)
     import torch
+    del ops
+    torch.cuda.empty_cache()
+    k2_worst, k2_timing = phase_toeplitz_kernels()
+    tree, k2_launches = phase_tree_path()
+    phase_tree_cross_checks(tree)
+    del tree
     t256 = timing[256]
     record = {"kernels": [{
         "name": "sense_normal_cuda (kernels A, B, C)",
@@ -648,6 +953,15 @@ def main():
         "max_abs_err": worst,
         "ms": t256["ms"],
         "plain_ms": t256["plain_ms"],
+    }, {
+        "name": "toeplitz_apply_cuda (K2)",
+        "route": "cuda",
+        "source": "indigo_tpu_torch/csrc/sense_normal.cu",
+        "replaces": "indigo_tpu/ops/dft_pallas.py:759",
+        "launches": k2_launches,
+        "max_abs_err": k2_worst,
+        "ms": k2_timing[256]["ms"],
+        "plain_ms": k2_timing[256]["plain_ms"],
     }, {
         "name": "jag_spmm_cuda (K3)",
         "route": "cuda",

@@ -16,12 +16,19 @@ The slices ported so far:
 * the sparse-gridding path: ``sense_nufft_op(..., interp="sparse")``
   (``SpMatrix`` . ``Perm`` . ``CenteredDFT``) solved with ``cg`` on the
   operator algebra, whose gridding SpMMs run the hand-written CUDA kernels
-  K3 (jag) and K4 (blocked-ELL) in ``csrc/block_spmm.cu``.
+  K3 (jag) and K4 (blocked-ELL) in ``csrc/block_spmm.cu``;
+* the Toeplitz normal operator in the operator algebra:
+  ``toeplitz.ToeplitzNormal`` and ``sense_normal_toeplitz`` solved with
+  ``cg``, with ``noncart.pipe_menon_dcf`` weights; its 3D apply runs the
+  hand-written CUDA kernel K2 (``csrc/sense_normal.cu``, K1's family with
+  the coil fusion turned off).
 """
-from . import utils
+from . import noncart, toeplitz, utils
 from .operators import CenteredDFT, Perm, Scale, SpMatrix
 from .solvers import cg
+from .toeplitz import ToeplitzNormal, sense_normal_toeplitz
 from .utils import rand64c, rel_err
 
-__all__ = ["utils", "rand64c", "rel_err", "SpMatrix", "Perm",
-           "CenteredDFT", "Scale", "cg"]
+__all__ = ["utils", "noncart", "toeplitz", "rand64c", "rel_err",
+           "SpMatrix", "Perm", "CenteredDFT", "Scale", "ToeplitzNormal",
+           "sense_normal_toeplitz", "cg"]

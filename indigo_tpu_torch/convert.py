@@ -11,15 +11,16 @@ state: the port's counterpart of loading checkpoint weights.
 ``sparse_from_reference`` carries a reference block-sparse matrix
 (``BlockedJag``, ``BlockedELL``, ``ElementELL``) across, and
 ``spmatrix_from_reference`` a reference ``SpMatrix`` leaf, so that both
-packages apply the same tiles. This module reads the reference objects'
-arrays through numpy only and imports nothing of the reference.
+packages apply the same tiles; ``toeplitz_from_reference`` does the same for
+a ``ToeplitzNormal`` leaf and its spectrum. This module reads the reference
+objects' arrays through numpy only and imports nothing of the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["state_from_reference_arrays", "sparse_from_reference",
-           "spmatrix_from_reference"]
+           "spmatrix_from_reference", "toeplitz_from_reference"]
 
 
 def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
@@ -106,3 +107,24 @@ def spmatrix_from_reference(op):
     ellH = None if op.ellH is None else sparse_from_reference(op.ellH)
     return SpMatrix(None, name=op._name, _ell=sparse_from_reference(op.ell),
                     _ellH=ellH)
+
+
+def toeplitz_from_reference(op):
+    """The port's ToeplitzNormal with the spectrum of a reference one
+    (its ``_T``, ``_vol``, ``_method``, ``_name``), under the same method.
+
+    The reference stores "pallas" as ``pallas_spectrum``: block layout
+    transposed to (Y, Z, X). That transpose is undone, then block order
+    ("pallas", "dft") is mapped back to the raw spectrum, which the port's
+    constructor takes; "fft" is raw already. Every step is a permutation,
+    so the port ends up with the same values.
+    """
+    from .ops.dft_fft import block_perm
+    from .toeplitz import ToeplitzNormal
+
+    T = np.asarray(op._T, np.float32)
+    if op._method == "pallas":
+        T = np.transpose(T, (1, 0, 2))
+    if op._method in ("pallas", "dft"):
+        T = T[np.ix_(*(np.argsort(block_perm(s)) for s in T.shape))]
+    return ToeplitzNormal(T, op._vol, name=op._name, method=op._method)

@@ -1,6 +1,11 @@
 // Toeplitz SENSE normal operator for Hopper (sm_90a), plain f32 CUDA cores.
 //
-//   out_s = sum_c conj(m_c) * crop(IFFT(Tf * FFT(pad_2x(m_c * v_s))))
+//   K1: out_s = sum_c conj(m_c) * crop(IFFT(Tf * FFT(pad_2x(m_c * v_s))))
+//   K2: out_b = crop(IFFT(Tf * FFT(pad_2x(u_b))))
+//
+// K2 is K1 with the coil fusion turned off (one "coil", no maps): the same
+// kernel family, kern_a and kern_c instantiated with kCoils = false, and
+// the same kern_b.
 //
 // v (S, n1, n2, n3), maps (cc, n1, n2, n3), out (S, n1, n2, n3): complex64
 // (float2, re/im interleaved), natural (z, y, x) order, x contiguous. Tf is
@@ -15,6 +20,8 @@
 //   kernel B <- _make_kernel_B       : forward x, spectrum multiply, inverse
 //                                      (here inverse x, not z: see below)
 //   kernel C <- _make_kernel_C_fused : inverse y, inverse z, conj-map combine
+// and toeplitz_apply_pallas (K2): _make_kernel_A -> kern_a<false>,
+// _make_kernel_B -> kern_b, _make_kernel_C -> kern_c<false>.
 //
 // Bound on this card: the six stages are 28 n^4 complex multiply-adds per
 // coil (224 n^4 real flops, ~0.96 TFLOP per coil at 256^3), done as f32 FMA
@@ -154,7 +161,9 @@ __device__ void stage(const float2* __restrict__ M, int K, int L,
 }
 
 // Kernel A: t1[b] = Mf_z . (v_s * m_c) on (n1 x n2n3) slabs, then
-// t2[b, Z] = Mf_y . t1[b, Z] on (n2 x n3) slabs; b = s * cc + c.
+// t2[b, Z] = Mf_y . t1[b, Z] on (n2 x n3) slabs; b = s * cc + c. Without
+// kCoils (K2) there is no map multiply and cc = 1, so b = s.
+template <bool kCoils>
 __global__ void __launch_bounds__(NT)
     kern_a(const float2* __restrict__ v, const float2* __restrict__ maps,
            const float2* __restrict__ mfz, const float2* __restrict__ mfy,
@@ -171,8 +180,9 @@ __global__ void __launch_bounds__(NT)
     const long long s = b / cc, c = b % cc;
     float2 acc[4][4];
     tile_zero(acc);
-    tile_mac(mfz, K1, n1, v + s * n1 * P, maps + c * n1 * P, P, (int)P, k0,
-             c0, acc, sm);
+    tile_mac(mfz, K1, n1, v + s * n1 * P,
+             kCoils ? maps + c * n1 * P : nullptr, P, (int)P, k0, c0, acc,
+             sm);
     tile_store(t1 + b * K1 * P, P, K1, (int)P, k0, c0, acc);
   }
   cg::this_grid().sync();
@@ -229,6 +239,9 @@ __global__ void __launch_bounds__(NT)
 
 // Kernel C: t1[b, Z] = Mi_y . t2[b, Z] on (2n2 x n3) slabs, then per output
 // tile out[s] = sum_c conj(m_c) * (Mi_z . t1[b]) on (2n1 x n2n3) slabs.
+// Without kCoils (K2, cc = 1) the tile is out[s] = Mi_z . t1[s]: no coil
+// loop, no map read, and no second accumulator held in registers.
+template <bool kCoils>
 __global__ void __launch_bounds__(NT)
     kern_c(const float2* __restrict__ t2, float2* __restrict__ t1,
            const float2* __restrict__ maps, float2* __restrict__ out,
@@ -241,29 +254,34 @@ __global__ void __launch_bounds__(NT)
         sm);
   cg::this_grid().sync();
   const long long kt = cdiv(n1, TK), ct = cdiv(P, TC);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   for (long long t = blockIdx.x; t < S * kt * ct; t += gridDim.x) {
     const long long s = t / (kt * ct), r = t % (kt * ct);
     const int k0 = (int)(r / ct) * TK, c0 = (int)(r % ct) * TC;
     float2 o[4][4];
     tile_zero(o);
-    for (int c = 0; c < cc; ++c) {
-      const long long b = s * cc + c;
-      float2 acc[4][4];
-      tile_zero(acc);
-      tile_mac(miz, n1, 2 * n1, t1 + b * 2 * n1 * P, nullptr, P, (int)P, k0,
-               c0, acc, sm);
-      const float2* m = maps + (long long)c * n1 * P;
+    if constexpr (kCoils) {
+      const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+      for (int c = 0; c < cc; ++c) {
+        const long long b = s * cc + c;
+        float2 acc[4][4];
+        tile_zero(acc);
+        tile_mac(miz, n1, 2 * n1, t1 + b * 2 * n1 * P, nullptr, P, (int)P,
+                 k0, c0, acc, sm);
+        const float2* m = maps + (long long)c * n1 * P;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = k0 + ty + 16 * i, col = c0 + tx + 16 * j;
-          if (k < n1 && col < P) {
-            const float2 mm = m[(long long)k * P + col];
-            cmac(o[i][j], make_float2(mm.x, -mm.y), acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            const int k = k0 + ty + 16 * i, col = c0 + tx + 16 * j;
+            if (k < n1 && col < P) {
+              const float2 mm = m[(long long)k * P + col];
+              cmac(o[i][j], make_float2(mm.x, -mm.y), acc[i][j]);
+            }
           }
-        }
+      }
+    } else {
+      tile_mac(miz, n1, 2 * n1, t1 + s * 2 * n1 * P, nullptr, P, (int)P, k0,
+               c0, o, sm);
     }
     tile_store(out + s * n1 * P, P, n1, (int)P, k0, c0, o);
   }
@@ -288,6 +306,15 @@ int finish(cudaError_t e) {
   return (int)(e != cudaSuccess ? e : last);
 }
 
+// One cooperative launch of `fn` over the largest fully resident grid.
+int coop_launch(const void* fn, void** args, void* stream) {
+  int grid;
+  cudaError_t e = coop_grid(fn, &grid);
+  if (e != cudaSuccess) return finish(e);
+  return finish(cudaLaunchCooperativeKernel(fn, grid, NT, args, 0,
+                                            (cudaStream_t)stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,15 +325,11 @@ extern "C" {
 int indigo_sense_normal_a(const void* v, const void* maps, const void* mfz,
                           const void* mfy, void* t1, void* t2, int S, int cc,
                           int n1, int n2, int n3, void* stream) {
-  int grid;
-  cudaError_t e = coop_grid((const void*)kern_a, &grid);
-  if (e != cudaSuccess) return finish(e);
   const float2 *pv = (const float2*)v, *pm = (const float2*)maps,
                *pz = (const float2*)mfz, *py = (const float2*)mfy;
   float2 *p1 = (float2*)t1, *p2 = (float2*)t2;
   void* args[] = {&pv, &pm, &pz, &py, &p1, &p2, &S, &cc, &n1, &n2, &n3};
-  return finish(cudaLaunchCooperativeKernel((const void*)kern_a, grid, NT,
-                                            args, 0, (cudaStream_t)stream));
+  return coop_launch((const void*)kern_a<true>, args, stream);
 }
 
 int indigo_sense_normal_b(void* t2, const void* tf, const void* mfxT,
@@ -328,15 +351,37 @@ int indigo_sense_normal_b(void* t2, const void* tf, const void* mfxT,
 int indigo_sense_normal_c(const void* t2, void* t1, const void* maps,
                           void* out, const void* miy, const void* miz, int S,
                           int cc, int n1, int n2, int n3, void* stream) {
-  int grid;
-  cudaError_t e = coop_grid((const void*)kern_c, &grid);
-  if (e != cudaSuccess) return finish(e);
   const float2 *p2 = (const float2*)t2, *pm = (const float2*)maps,
                *py = (const float2*)miy, *pz = (const float2*)miz;
   float2 *p1 = (float2*)t1, *po = (float2*)out;
   void* args[] = {&p2, &p1, &pm, &po, &py, &pz, &S, &cc, &n1, &n2, &n3};
-  return finish(cudaLaunchCooperativeKernel((const void*)kern_c, grid, NT,
-                                            args, 0, (cudaStream_t)stream));
+  return coop_launch((const void*)kern_c<true>, args, stream);
+}
+
+// K2 (toeplitz_apply): kernels A and C without the coil fusion on a batch
+// of B volumes u (B, n1, n2, n3); kernel B is indigo_sense_normal_b with
+// the same B.
+
+int indigo_toeplitz_apply_a(const void* u, const void* mfz, const void* mfy,
+                            void* t1, void* t2, int B, int n1, int n2,
+                            int n3, void* stream) {
+  const float2 *pv = (const float2*)u, *pm = nullptr,
+               *pz = (const float2*)mfz, *py = (const float2*)mfy;
+  float2 *p1 = (float2*)t1, *p2 = (float2*)t2;
+  int cc = 1;
+  void* args[] = {&pv, &pm, &pz, &py, &p1, &p2, &B, &cc, &n1, &n2, &n3};
+  return coop_launch((const void*)kern_a<false>, args, stream);
+}
+
+int indigo_toeplitz_apply_c(const void* t2, void* t1, void* out,
+                            const void* miy, const void* miz, int B, int n1,
+                            int n2, int n3, void* stream) {
+  const float2 *p2 = (const float2*)t2, *pm = nullptr,
+               *py = (const float2*)miy, *pz = (const float2*)miz;
+  float2 *p1 = (float2*)t1, *po = (float2*)out;
+  int cc = 1;
+  void* args[] = {&p2, &p1, &pm, &po, &py, &pz, &B, &cc, &n1, &n2, &n3};
+  return coop_launch((const void*)kern_c<false>, args, stream);
 }
 
 const char* indigo_error_string(int code) {

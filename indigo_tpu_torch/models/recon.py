@@ -37,10 +37,12 @@ class SenseRecon(nn.Module):
     """Multi-coil NUFFT SENSE reconstruction pipeline.
 
     traj: (M, d) in cycles/pixel [-0.5, 0.5); maps: (nc, *img_shape).
-    dcf: None | 'radial' (analytic |k|^(d-1) ramp) | (M,) weights in user
-    order — folded into the normal equations (A^H W A x = A^H W y); the
-    'pipe_menon' DCF is not ported yet. The CG runs on the Toeplitz-embedded
-    normal operator; the gridded operator serves ``simulate`` and the rhs.
+    dcf: None | 'radial' (analytic |k|^(d-1) ramp) | 'pipe_menon'
+    (``noncart.pipe_menon_dcf`` on the oversampled grid; its fixed point
+    runs on ``device`` when that is CUDA and the grid is >= 64^3) | (M,)
+    weights in user order — folded into the normal equations
+    (A^H W A x = A^H W y). The CG runs on the Toeplitz-embedded normal
+    operator; the gridded operator serves ``simulate`` and the rhs.
 
     lamda: None picks 1e-3 * |Tf|_max floored at the gridding-error
     stability scale (``lamda_floor``); an explicit value is used verbatim,
@@ -67,9 +69,10 @@ class SenseRecon(nn.Module):
             w = (np.sum(traj ** 2, axis=1) ** ((d - 1) / 2.0)
                  + (0.5 / max(img_shape)) ** (d - 1)).astype(np.float32)
             w /= w.max()
-        elif isinstance(dcf, str):
-            raise NotImplementedError(
-                f"dcf={dcf!r} is not ported yet (ROADMAP Queue 1, item 7)")
+        elif isinstance(dcf, str) and dcf == "pipe_menon":
+            from ..noncart import pipe_menon_dcf
+            grid = tuple(int(2 * round(s * oversamp / 2)) for s in img_shape)
+            w = pipe_menon_dcf(traj, grid, width=width, device=device)
         else:
             w = np.asarray(dcf, np.float32).ravel()
 

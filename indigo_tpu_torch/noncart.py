@@ -1,8 +1,10 @@
 """Non-Cartesian NUFFT host geometry: Kaiser-Bessel weights, trajectory sort,
-gridding CSR, deapodization (host numpy, copied from indigo_tpu/noncart.py).
+gridding CSR, deapodization, Pipe-Menon density compensation (host numpy,
+copied from indigo_tpu/noncart.py).
 
 These functions run once per pipeline on the host, so they stay numpy; the
 tests hold each one array-equal to indigo_tpu's so the copies cannot drift.
+``pipe_menon_dcf`` can also run its fixed point on a torch device.
 ``interp_mat`` has only the numpy branch here (the native C++ gridding code is
 still to be ported).
 
@@ -15,10 +17,12 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 __all__ = [
     "kaiser_bessel", "beatty_beta", "interp_mat", "deapodization",
     "checkerboard", "sort_trajectory", "tiled_order", "DEFAULT_TILES",
+    "pipe_menon_dcf",
 ]
 
 # Grid tiles of 128 nodes, shaped per rank so a KB patch touches few tiles;
@@ -155,6 +159,58 @@ def deapodization(img_shape, grid_shape, width=4, beta=None):
         a = _apod_1d(G, N, width, beta)
         out = np.multiply.outer(out, 1.0 / a)
     return out.astype(np.float32)
+
+
+def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
+                   impl="auto", device=None):
+    """Density-compensation weights by Pipe-Menon fixed point.
+
+    w_{k+1} = w_k / |G G^H w_k|: after convergence, gridding with weights w
+    approximates a flat density. Returns float32 numpy weights (M,),
+    normalised to a maximum of 1.
+
+    ``impl``:
+      'host'   — the scipy-CSR fixed point (the executable spec, copied);
+        minutes at 3D/1M-sample scale.
+      'device' — the same fixed point through the KB gather and its
+        ``index_add_`` adjoint (``ops/tile_interp.tile_interp_apply``, one
+        column) on ``device`` (default the CPU).
+      'auto'   — 'device' when ``device`` is a CUDA device and the grid is
+        at least 64^3, else 'host' (the reference decides by platform).
+    """
+    traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
+    M = len(traj)
+    G_ = tuple(int(g) for g in grid_shape)
+    device = torch.device("cpu" if device is None else device)
+    if impl == "auto":
+        impl = "device" if (device.type == "cuda"
+                            and np.prod(G_) >= 64 ** 3) else "host"
+
+    if impl == "device":
+        from .ops.tile_interp import (kb_patches, plan_tile_interp,
+                                      tile_interp_apply)
+
+        corner, wkb = kb_patches(plan_tile_interp(traj, G_, width=width,
+                                                  beta=beta))
+        corner = torch.from_numpy(corner).to(device)
+        wkb = torch.from_numpy(wkb).to(device)
+        w = torch.ones((M, 1), dtype=torch.float32, device=device)
+        for _ in range(iters):
+            g = tile_interp_apply(corner, wkb, G_, w, adjoint=True)
+            d = tile_interp_apply(corner, wkb, G_, g)
+            w = w / torch.clamp(d.abs(), min=1e-12)
+        return (w / w.max())[:, 0].cpu().numpy().astype(np.float32)
+    if impl != "host":
+        raise ValueError(f"unknown impl {impl!r}")
+
+    G = interp_mat(traj, grid_shape, width=width, beta=beta)
+    w = np.ones(M, dtype=np.float64)
+    for _ in range(iters):
+        d = G @ (G.conj().T @ w)
+        d = np.abs(np.asarray(d).ravel())
+        w = w / np.maximum(d, 1e-12)
+    # normalize so DC gets unit total weight density
+    return (w / w.max()).astype(np.float32)
 
 
 def checkerboard(shape, shifted=False):

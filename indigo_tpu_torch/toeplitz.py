@@ -1,18 +1,23 @@
-"""Toeplitz-embedded NUFFT normal operator: its spectrum.
+"""Toeplitz-embedded NUFFT normal operator: its spectrum and its operator.
 
-Counterpart of ``indigo_tpu/toeplitz.py`` (``toeplitz_kernel``):
+Counterpart of ``indigo_tpu/toeplitz.py`` (``toeplitz_kernel``,
+``ToeplitzNormal``, ``sense_normal_toeplitz``):
 
     A^H A x  ~=  crop( IFFT( T * FFT( pad_2x(x) ) ) )
 
 T is the real spectrum of the point-spread kernel on the doubled grid,
 computed once as the gridded adjoint NUFFT of the weights on a 2N image.
+``ToeplitzNormal`` is the operator-algebra leaf that applies it; on the GPU
+its 3D form runs the hand-written CUDA kernel K2 (``ops.dft_cuda``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["toeplitz_kernel"]
+from .operators import Diag, KronI, Operator, VStack
+
+__all__ = ["toeplitz_kernel", "ToeplitzNormal", "sense_normal_toeplitz"]
 
 
 def toeplitz_kernel(traj, img_shape, oversamp=1.5, width=5, weights=None,
@@ -118,3 +123,126 @@ def _toeplitz_kernel_device(traj, big, grid2, width, beta, w, device):
     t = torch.fft.ifftshift(t, dim=dims)
     Tf = torch.fft.fftn(t, dim=dims).real.to(torch.float32)
     return np.ascontiguousarray(Tf.cpu().numpy())
+
+
+class ToeplitzNormal(Operator):
+    """Self-adjoint operator x -> crop(IFFT(T * FFT(pad(x)))), shape (N, N).
+
+    ``method`` keeps the reference's names:
+      "pallas" — the hand-written kernel family: K2 (``ops.dft_cuda.
+        toeplitz_apply_cuda``) on CUDA tensors, its plain version on CPU
+        tensors; 3D volumes that ``ops.dft_cuda.supported`` takes;
+      "dft"    — the plain matmul-DFT pipeline (``ops/dft_fft.py``), any
+        rank, any device;
+      "fft"    — the per-axis ``torch.fft`` path (``ops/toeplitz_fft.py``),
+        kept as a cross-check;
+      "auto"   — "pallas" for volumes the kernel takes, else "dft".
+    Unlike the reference, which resolves "auto" by platform when it is
+    built, the device is decided by the input tensor at apply time: the
+    module moves with ``.to()``, and a CPU tensor never launches a kernel.
+
+    ``Tf`` is the raw spectrum (numpy, 2x the image shape). "pallas" and
+    "dft" store it in ``kernel_spectrum`` order (the same array as
+    ``block_spectrum``), "fft" as it is; the buffer is ``T``.
+    """
+
+    def __init__(self, Tf, img_shape, name=None, method="auto"):
+        from .ops.dft_cuda import kernel_spectrum, supported
+
+        super().__init__(name)
+        if method not in ("auto", "pallas", "dft", "fft"):
+            raise ValueError(f"unknown method {method!r}")
+        self._vol = tuple(int(s) for s in img_shape)
+        if method == "auto":
+            method = "pallas" if supported(self._vol) else "dft"
+        if method == "pallas" and not supported(self._vol):
+            raise ValueError(
+                "the pallas method needs a 3D volume with dims that are "
+                f"multiples of 8 in [8, 256], got {self._vol}")
+        Tf = np.asarray(Tf, dtype=np.float32)
+        if Tf.shape != tuple(2 * s for s in self._vol):
+            raise ValueError(f"Tf shape {Tf.shape} is not 2x {self._vol}")
+        if method != "fft":
+            Tf = kernel_spectrum(Tf)  # host-side, once
+        self.register_buffer(
+            "T", torch.from_numpy(np.require(Tf, requirements=["C", "W"])))
+        self._method = method
+
+    @property
+    def method(self):
+        return self._method
+
+    @property
+    def img_shape(self):
+        return self._vol
+
+    @property
+    def shape(self):
+        n = int(np.prod(self._vol))
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return torch.complex64
+
+    def apply(self, x, adjoint=False):
+        # self-adjoint: forward == adjoint
+        from .ops.dft_cuda import toeplitz_apply_cuda
+        from .ops.dft_fft import toeplitz_apply_block
+        from .ops.toeplitz_fft import fft_pad2x, ifft_crop2x
+
+        K = x.shape[1]
+        v = x.reshape(self._vol + (K,)).to(torch.complex64)
+        if self._method == "fft":
+            axes = tuple(range(len(self._vol)))
+            v = ifft_crop2x(self.T[..., None] * fft_pad2x(v, axes), axes)
+        else:
+            # (K, *vol), batch leading; the kernel takes contiguous input
+            # only, so the copy is made here, in the open
+            v = v.movedim(-1, 0).contiguous()
+            if self._method == "pallas":
+                v = toeplitz_apply_cuda(self.T, v)
+            else:
+                v = toeplitz_apply_block(self.T, v)
+            v = v.movedim(0, -1)
+        return v.reshape(-1, K)
+
+    def cost(self, ncols=1):
+        K = ncols
+        big = int(np.prod(self.T.shape))
+        flops = 5 * big * max(1, int(np.log2(max(big, 2)))) * K * 4
+        # zero-aware padded round trip: ~(2+4+8)/8 passes of big + T read
+        return flops, int(1.75 * big * K * 8 * 2) + big * 4
+
+    def _describe(self):
+        return (f"{self.name}{list(self._vol)} <{self.shape[0]}x"
+                f"{self.shape[1]}> (2x-grid {list(self.T.shape)})")
+
+    def extra_repr(self):
+        return self._describe()
+
+    def sigma_basis(self):
+        """(self, None) always: the port has no sigma basis.
+
+        The reference returns a conjugated (K_sigma, P) pair for radix
+        (> 128) axes on its Pallas path, a workaround for Mosaic's missing
+        interleaving relayouts. The CUDA kernel runs every n <= 256 in
+        natural order, so there is nothing to conjugate; the call is kept
+        so that solver code written for the reference runs unchanged.
+        """
+        return self, None
+
+
+def sense_normal_toeplitz(Tf, maps):
+    """A^H A for multi-coil SENSE via the Toeplitz kernel:
+    sum_c Diag(m_c)^H . Toep . Diag(m_c) as an operator tree. ``KronI``
+    folds the coils into the column batch, so one ToeplitzNormal apply (one
+    K2 launch triple on the GPU) serves every coil."""
+    maps = np.asarray(maps)
+    nc = maps.shape[0]
+    img_shape = maps.shape[1:]
+    T = ToeplitzNormal(Tf, img_shape, name="Toeplitz")
+    coils = VStack(
+        [Diag(maps[c].ravel().astype(np.complex64), name=f"Map{c}")
+         for c in range(nc)], name="Coils")
+    return coils.H * KronI(nc, T, name="PerCoil") * coils

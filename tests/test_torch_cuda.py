@@ -80,6 +80,62 @@ def test_recon_kernel_path_matches_cpu_plain_path(cuda):
     assert rel_err(rg, rc) < 1e-4
 
 
+# ---- Toeplitz round trip K2 (K1's family without the coil fusion) --------
+
+@pytest.mark.parametrize("shape,B", [((8, 8, 8), 2), ((8, 16, 24), 3),
+                                     ((16, 136, 8), 1), ((24, 8, 136), 2)])
+def test_toeplitz_kernel_matches_plain(cuda, shape, B):
+    from indigo_tpu_torch.ops.dft_cuda import (
+        toeplitz_apply_cuda, toeplitz_apply_reference)
+
+    T, _, u = _inputs(np.random.default_rng(7), shape, B, 1, cuda)
+    before = toeplitz_apply_cuda.launches
+    out = toeplitz_apply_cuda(T, u)
+    torch.cuda.synchronize()
+    assert toeplitz_apply_cuda.launches == before + 3
+    assert rel_err(out, toeplitz_apply_reference(T, u)) < 1e-4
+
+
+def test_toeplitz_kernel_rejects_what_it_does_not_take(cuda):
+    from indigo_tpu_torch.ops.dft_cuda import toeplitz_apply_cuda
+
+    T, _, u = _inputs(np.random.default_rng(8), (8, 8, 8), 2, 1, cuda)
+    before = toeplitz_apply_cuda.launches
+    with pytest.raises(TypeError):
+        toeplitz_apply_cuda(T, u.to(torch.complex128))
+    with pytest.raises(ValueError):
+        toeplitz_apply_cuda(T, u.transpose(1, 3))
+    T2, _, u2 = _inputs(np.random.default_rng(8), (12, 8, 8), 1, 1, cuda)
+    with pytest.raises(ValueError):
+        toeplitz_apply_cuda(T2, u2)
+    assert toeplitz_apply_cuda.launches == before
+
+
+def test_toeplitz_normal_on_cuda_runs_the_kernel(cuda):
+    from indigo_tpu_torch.ops.dft_cuda import (
+        toeplitz_apply_cuda, toeplitz_apply_reference)
+    from indigo_tpu_torch.toeplitz import ToeplitzNormal, \
+        sense_normal_toeplitz
+
+    rng = np.random.default_rng(9)
+    img, nc = (8, 16, 8), 3
+    Tf = rng.standard_normal(tuple(2 * s for s in img)).astype(np.float32)
+    maps = rand64c(nc, *img, rng=rng)
+    x = torch.from_numpy(rand64c(int(np.prod(img)), 2, rng=rng))
+    K = ToeplitzNormal(Tf, img)
+    N = sense_normal_toeplitz(Tf, maps)
+    ref_k, ref_n = K * x, N * x
+    K, N = K.to(cuda), N.to(cuda)
+    plain = toeplitz_apply_reference.cuda_calls
+    before = toeplitz_apply_cuda.launches
+    out_k, out_n = K * x.to(cuda), N * x.to(cuda)
+    torch.cuda.synchronize()
+    assert toeplitz_apply_cuda.launches == before + 6
+    assert toeplitz_apply_reference.cuda_calls == plain
+    assert rel_err(out_k, ref_k) < 1e-4
+    assert rel_err(out_n, ref_n) < 1e-4
+
+
 # ---- block-sparse SpMM kernels K3 (jag) and K4 (blocked-ELL) -------------
 
 SPMM_SHAPES = [(64, 256, 8, 0.05), (100, 300, 4, 0.02), (257, 640, 16, 0.01),

@@ -155,5 +155,7 @@ def test_jacobi_tol_and_errors(pair):
     assert pp.last_iters == jj.last_iters < 40
     with pytest.raises(ValueError):
         pp(np.zeros(17, np.complex64))
-    with pytest.raises(NotImplementedError):
-        SenseRecon(traj, maps, dcf="pipe_menon", **kw)
+    # dcf="pipe_menon" builds (it raised before it was ported) and matches
+    jm = JRecon(traj, maps, dcf="pipe_menon", **kw)
+    pm = SenseRecon(traj, maps, dcf="pipe_menon", **kw)
+    assert rel_err(pm(y), jm(y)) < 1e-4

@@ -6,23 +6,30 @@ Phases (each prints one line with its numbers and seconds; any failure
 raises and exits non-zero):
   0. device: requires CUDA (there is no CPU fallback); prints the card, its
      power limit (nvidia-smi), torch and CUDA versions.
-  1. build: compiles the CUDA kernels from csrc/ (nvcc, first use).
+  1. build: compiles the CUDA kernels from csrc/ (nvcc, first use) and
+     prints each kernel's registers and any stack frame (ptxas -v).
   2. kernel vs plain: sense_normal_cuda against sense_normal_reference on the
-     card at 8^3 .. 256^3 (rel_err <= 1e-4), and both times at 128^3/nc=8 and
-     256^3/nc=4.
+     card at 8^3 .. 256^3 and at non-power-of-two axes (rel_err <= 1e-4);
+     at 128^3/nc=8 and 256^3/nc=4 the kernel, plain and library times
+     (cuFFT through sense_normal_batched(layout="fft"), which the port's
+     path never calls), in turns plain, kernel, library, kernel, plain, the
+     five passes' ms, each pass's share of its bytes floor, and the bound.
   3. main path: SenseRecon at the serving-lane size (256^3, 8 coils, 4096 x
      256 kooshball = 1,048,576 samples per coil, oversamp 1.25, width 4,
      10 CG iterations, coil_chunk 4) on the GPU: 3 acquisitions of a noisy
      smooth phantom, the same 3 through ``stream``, then the noise-free
      data once. Checks finite, decreasing residuals, a finite image, the
-     kernel launch count and that the plain normal op never ran on the GPU;
+     kernel launch count (5 passes per K1 call, 2 calls per CG iteration)
+     and that the plain normal op never ran on the GPU;
      a small problem is also reconstructed on the GPU and on the CPU and the
      two compared.
   4. spmm kernels: K3 (jag_spmm_cuda) and K4 (ell_spmm_cuda) against their
      plain versions on the card (rel_err <= 1e-5): small shapes at bm 8, 16
      and 128, then the radial path's own matrices (G and G^H at 256^2 as
      jag, G as ELL at 256^2, G^H as ELL at 128^2; 16 real columns), with
-     kernel and plain ms (plain, kernel, kernel, plain).
+     kernel, plain and library ms (cuSPARSE through torch.sparse.mm on the
+     same matrix as CSR; plain, kernel, library, kernel, plain) and the
+     bound from the nonzeros.
   5. radial 2D path: the reference's 2D radial CG-SENSE recipe at 256^2,
      8 coils, 384 spokes x 512 readout points (196,608 samples per coil),
      oversamp 1.5 (grid 384^2), width 4: sense_nufft_op(interp="sparse") on
@@ -33,9 +40,11 @@ raises and exits non-zero):
      the GPU and on the CPU (<= 1e-4); and a 128^2 solve whose gridding leaf
      is blocked-ELL (K4) against the jag (K3) solve (<= 1e-4).
   6a. K2 kernel vs plain: toeplitz_apply_cuda against
-     toeplitz_apply_reference on the card at 8^3 .. 256^3 (rel_err <= 1e-4),
-     and both times (plain, kernel, kernel, plain) plus per-kernel ms at
-     128^3 and 256^3 with B = 8.
+     toeplitz_apply_reference on the card at 8^3 .. 256^3 and at
+     non-power-of-two axes (rel_err <= 1e-4), and at 128^3 and 256^3 with
+     B = 8 the kernel, plain and library times (cuFFT through
+     ops/toeplitz_fft; plain, kernel, library, kernel, plain), the five
+     passes' ms, each pass's share of its bytes floor, and the bound.
   6b. Toeplitz operator-tree path: the reference's 3D CG-SENSE recipe with
      Pipe-Menon DCF at the serving-lane size (256^3, 8 coils, the same
      kooshball, oversamp 1.25, width 4): pipe_menon_dcf (20 iterations, on
@@ -43,16 +52,19 @@ raises and exits non-zero):
      (coils.H * KronI(8, ToeplitzNormal) * coils), rhs = A^H W y, then two
      solves of cg(N, rhs, lamda, tol=0, maxiter=10, history=True) and one
      on the noise-free data. Checks
-     finite, decreasing residuals, a finite image, exactly 33 K2 launches
-     per solve, no plain Toeplitz apply and no K1 launch on the GPU.
+     finite, decreasing residuals, a finite image, exactly 55 K2 launches
+     per solve (11 applies x 5 passes), no plain Toeplitz apply and no K1
+     launch on the GPU.
   6c. cross-checks: one tree apply (K2) against sense_normal_batched
      (layout "kernel", K1) on the same spectrum; the 256^3 tree solve
      against sense_batch_recon (K1, coil_chunk 4) at the same lamda and
      iterations; the recipe at 32^3/4 coils on the GPU and on the CPU (and
      the device DCF on the GPU against the host DCF); SenseRecon(dcf=
      "pipe_menon") at 32^3 on the GPU and on the CPU. All <= 1e-4.
-The line before the last holds the per-kernel JSON record; the last line is
-the result object.
+After the counted runs, one warm solve of each 3D path runs under
+torch.profiler ([profile] lines: device time by kernel, busy share).
+The line before the last holds the per-kernel JSON record (launches, error,
+kernel / plain / library ms, bound); the last line is the result object.
 """
 import json
 import os
@@ -68,6 +80,48 @@ N, NC, NSPOKES, NREAD = 256, 8, 4096, 256
 OVERSAMP, WIDTH, ITERS, COIL_CHUNK = 1.25, 4, 10, 4
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-4
+# NVIDIA H100 SXM published peaks: HBM3 bytes/s and f32 (CUDA-core) flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def toeplitz_bound(shape, S, nc):
+    """K1 (nc maps, S images) or K2 (nc = 0, S volumes): inputs read and the
+    output written once; the zero-aware FFT round trip of every volume it
+    transforms (5 N log2 N flops per N-point FFT, two per line per axis
+    each way: 20, 40, 80 V log2 n for z, y, x), the spectrum multiply and,
+    for K1, the map multiply and conj-map sum."""
+    n1, n2, n3 = shape
+    V = n1 * n2 * n3
+    vols = S * max(nc, 1)
+    fft = V * (20 * np.log2(n1) + 40 * np.log2(n2) + 80 * np.log2(n3))
+    flops = vols * (fft + 16 * V + (14 * V if nc else 0))
+    nbytes = 8 * V * (2 * S + nc) + 4 * 8 * V
+    return bound(nbytes, flops)
+
+
+def pass_bytes(shape, S, nc):
+    """Bytes each of the five passes (z, y, x, y, z) moves when it reads its
+    inputs once and writes its output once: v and maps -> t1 (2V per
+    volume) -> t2 (4V) -> t2 and the f32 spectrum -> t1 -> out."""
+    V = int(np.prod(shape))
+    vols = S * max(nc, 1)
+    return [8 * V * (S + nc + 2 * vols), 8 * V * 6 * vols,
+            8 * V * 8 * vols + 32 * V, 8 * V * 6 * vols,
+            8 * V * (2 * vols + nc + S)]
+
+
+def spmm_bound(csr, K):
+    """y = A x with K real columns: every nonzero (value and column index)
+    and x read once, y written once; 2 flops per nonzero and column."""
+    M, Nc = csr.shape
+    return bound(8 * csr.nnz + 4 * K * (Nc + M), 2 * csr.nnz * K)
 
 
 def log(phase, t0, **fields):
@@ -126,25 +180,29 @@ def phase_device():
 
 
 def kernel_registers(ptxas_log):
-    """[(kernel, registers)] from nvcc's -Xptxas -v output, each entry
-    function named as in the source (kern_c<false>, block_spmm<16,16,true>)."""
-    regs, name = [], None
+    """[(kernel, registers, stack frame bytes)] from nvcc's -Xptxas -v
+    output, each entry function named as in the source
+    (kern_inv<16,16,true>, block_spmm<16,16,true>)."""
+    regs, name, stack = [], None, 0
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
+            name, stack = m.group(1), 0
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m and name:
+            stack = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             # the digit is the mangled length prefix, which the namespace
             # tag of the file (..._block_spmm_cu_...) does not have
-            k = re.search(r"(?<=\d)(kern_[abc]|block_spmm)(I(?:L[ib]\d+E)+E)?",
-                          name)
+            k = re.search(r"(?<=\d)(kern_fwd|kern_inv|kern_x|block_spmm)"
+                          r"(I(?:L[ib]\d+E)+E)?", name)
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "") if k else []
             vals = [("true" if v == "1" else "false") if t == "b" else v
                     for t, v in args]
             label = (k.group(1) + (f"<{','.join(vals)}>" if vals else "")
                      if k else name)
-            regs.append((label, int(m.group(1))))
+            regs.append((label, int(m.group(1)), stack))
             name = None
     return regs
 
@@ -155,7 +213,8 @@ def phase_build():
     load_library()
     with open(os.path.join(build_dir(), "build.log")) as f:
         regs = kernel_registers(f.read())
-    log("build", t0, registers=",".join(f"{k}:{r}" for k, r in regs))
+    log("build", t0, registers=",".join(f"{k}:{r}" for k, r, _ in regs),
+        stack_bytes=",".join(f"{k}:{b}" for k, _, b in regs if b) or "none")
 
 
 def timed(fn, reps):
@@ -172,19 +231,102 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profile_solve(label, fn):
+    """One call of fn under torch.profiler: the device time by kernel (the
+    CUDA activities CUPTI records, ctypes launches included), their union
+    against the host wall (busy share). Prints one [profile] line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        key = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
+        key = key.split("(")[0].replace(" ", "")
+        by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e6
+    if not spans:
+        print(f"[profile] path={label} wall_s={wall:.4f} device=not measured "
+              "(no CUDA activity in the trace)", flush=True)
+        return
+    busy, end = 0.0, -1e30
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    dev = sum(by_name.values())
+    print(f"[profile] path={label} wall_s={wall:.4f} device_s={dev:.4f} "
+          f"busy_s={busy:.4f} busy_share={busy / wall:.4f} top="
+          + ";".join(f"{k}:{t:.4f}s:{t / dev:.3f}" for k, t in top[:8]),
+          flush=True)
+
+
+def toeplitz_timing(kernel, plain, library, shape, S, nc):
+    """Kernel, plain and library ms in turns (plain, kernel, library,
+    kernel, plain), then the five passes' ms from one evented call, the
+    bound (toeplitz_bound) and each pass's share of its own bytes floor
+    (pass_bytes over the card's memory rate)."""
+    import torch
+    reps = TIMING_REPS[shape[0]]
+    p1 = timed(plain, reps["plain"])
+    k1 = timed(kernel, reps["kernel"])
+    lib = timed(library, reps["library"])
+    k2 = timed(kernel, reps["kernel"])
+    p2 = timed(plain, reps["plain"])
+    from indigo_tpu_torch.ops.dft_cuda import LAUNCHES_PER_CALL
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(LAUNCHES_PER_CALL + 1)]
+    kernel(events=ev)
+    torch.cuda.synchronize()
+    per = [ev[i].elapsed_time(ev[i + 1]) for i in range(LAUNCHES_PER_CALL)]
+    b_ms, b_by = toeplitz_bound(shape, S, nc)
+    floors = [b / HBM_BYTES_PER_S * 1e3 for b in pass_bytes(shape, S, nc)]
+    timing = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                  bound_ms=b_ms, bound_by=b_by)
+    fields = dict(kernel_ms=f"{k1:.3f},{k2:.3f}",
+                  plain_ms=f"{p1:.3f},{p2:.3f}", library_ms=f"{lib:.3f}",
+                  fz_fy_x_iy_iz_ms=",".join(f"{x:.3f}" for x in per),
+                  pass_share_of_bytes_floor=",".join(
+                      f"{f / t:.3f}" for f, t in zip(floors, per)),
+                  bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                  share_of_bound=f"{b_ms / timing['ms']:.4f}")
+    return timing, fields
+
+
+TIMING_REPS = {128: dict(plain=5, kernel=20, library=10),
+               256: dict(plain=3, kernel=10, library=5)}
+# every phase-2/6a shape; (24, 136, 40) and (8, 256, 16) reach the direct-sum
+# and the 16 x 16 factor plans on axes other than the cube's
+TOEPLITZ_SHAPES = [(8, 8, 8), (8, 16, 24), (16, 136, 8), (24, 136, 40),
+                   (8, 256, 16), (128, 128, 128), (256, 256, 256)]
+
+
 def phase_kernels():
     import torch
     from indigo_tpu_torch.ops.dft_cuda import (
         kernel_spectrum, sense_normal_cuda, sense_normal_reference)
+    from indigo_tpu_torch.parallel.recon import sense_normal_batched
     from indigo_tpu_torch.utils import rand64c, rel_err
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    cases = [((8, 8, 8), 1, 2), ((8, 16, 24), 2, 3), ((16, 136, 8), 1, 2),
-             ((128, 128, 128), 1, 8), ((256, 256, 256), 1, 4)]
+    counts = {(8, 8, 8): (1, 2), (8, 16, 24): (2, 3), (16, 136, 8): (1, 2),
+              (24, 136, 40): (2, 3), (8, 256, 16): (1, 2),
+              (128, 128, 128): (1, 8), (256, 256, 256): (1, 4)}
     worst = 0.0
     timing = {}
-    for shape, S, nc in cases:
+    for shape in TOEPLITZ_SHAPES:
+        S, nc = counts[shape]
         t0 = time.time()
         Tf = rng.standard_normal(tuple(2 * s for s in shape)).astype(
             np.float32)
@@ -204,20 +346,23 @@ def phase_kernels():
         fields = dict(shape="x".join(map(str, shape)), S=S, nc=nc,
                       rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
         if shape[0] >= 128:
-            reps = 5 if shape[0] == 128 else 3
-            # plain, kernel, kernel, plain: drift shows up as a split
-            p1 = timed(lambda: sense_normal_reference(T, m, v), reps)
-            k1 = timed(lambda: sense_normal_cuda(T, m, v), reps)
-            k2 = timed(lambda: sense_normal_cuda(T, m, v), reps)
-            p2 = timed(lambda: sense_normal_reference(T, m, v), reps)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            sense_normal_cuda(T, m, v, events=ev)
-            torch.cuda.synchronize()
-            per = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-            timing[shape[0]] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-            fields.update(kernel_ms=f"{k1:.2f},{k2:.2f}",
-                          plain_ms=f"{p1:.2f},{p2:.2f}",
-                          a_b_c_ms=",".join(f"{x:.2f}" for x in per))
+            # the library route reads the raw-order spectrum itself
+            T_raw = torch.from_numpy(Tf).to(dev)
+            xs = v.reshape(S, -1)
+
+            def library():
+                return sense_normal_batched(T_raw, m, xs, layout="fft")
+            lib_err = rel_err(library().reshape(v.shape),
+                              sense_normal_cuda(T, m, v))
+            if not lib_err <= KERNEL_TOL:
+                raise AssertionError(f"library route vs kernel at {shape}: "
+                                     f"rel_err {lib_err:.3e}")
+            timing[shape[0]], tf = toeplitz_timing(
+                lambda events=None: sense_normal_cuda(T, m, v, events=events),
+                lambda: sense_normal_reference(T, m, v), library, shape, S,
+                nc)
+            fields.update(tf, rel_err_library=f"{lib_err:.3e}")
+            del T_raw, xs
         del T, m, v
         torch.cuda.empty_cache()
         log("kernel", t0, **fields)
@@ -254,7 +399,7 @@ def phase_main_path():
     import torch
     from indigo_tpu_torch.models import SenseRecon
     from indigo_tpu_torch.ops.dft_cuda import (
-        sense_normal_cuda, sense_normal_reference)
+        LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
     from indigo_tpu_torch.utils import rel_err
 
     small_path_check()
@@ -289,7 +434,7 @@ def phase_main_path():
           for _ in range(3)]
     log("simulate", t0, samples=y0.shape[0])
 
-    per_solve = 3 * ITERS * (NC // COIL_CHUNK)
+    per_solve = LAUNCHES_PER_CALL * ITERS * (NC // COIL_CHUNK)
     times = []
     for i, y in enumerate(ys):
         t0 = time.time()
@@ -333,7 +478,9 @@ def phase_main_path():
           f"{t_stream:.3f} launches={sense_normal_cuda.launches} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
           flush=True)
-    return sense_normal_cuda.launches
+    launches = sense_normal_cuda.launches
+    profile_solve("serving", lambda: recon(ys[1]))
+    return launches
 
 
 RADIAL_N, RADIAL_NC, RADIAL_ITERS, RADIAL_LAMDA = 256, 8, 30, 0.1
@@ -437,7 +584,7 @@ def phase_spmm_kernels(ops):
                                                         bell_spmm)}
     rec = {k: {"max_abs_err": 0.0} for k in pairs}
 
-    def check(fmt, mat, x, label, time_it=False, **fields):
+    def check(fmt, mat, x, label, csr=None, **fields):
         t0 = time.time()
         kern, plain = pairs[fmt]
         y = kern(mat, x)
@@ -452,16 +599,37 @@ def phase_spmm_kernels(ops):
         fields.update(kernel=kern.__name__, at=label, bm=mat.bm,
                       fill=f"{mat.fill_fraction():.4f}",
                       rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
-        if time_it:
+        if csr is not None:
+            # the library route: cuSPARSE on the same matrix as CSR
+            A = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr.astype(np.int32)),
+                torch.from_numpy(csr.indices.astype(np.int32)),
+                torch.from_numpy(csr.data.astype(np.float32)),
+                size=csr.shape).to(dev)
+
+            def library():
+                return torch.sparse.mm(A, x)
+            lib_err = rel_err(library(), ref)
+            if not lib_err <= SPMM_TOL:
+                raise AssertionError(f"torch.sparse.mm vs plain at {label}: "
+                                     f"rel_err {lib_err:.3e}")
             p1 = timed(lambda: plain(mat, x), 10)
             k1 = timed(lambda: kern(mat, x), 20)
+            lib = timed(library, 20)
             k2 = timed(lambda: kern(mat, x), 20)
             p2 = timed(lambda: plain(mat, x), 10)
-            fields.update(kernel_ms=f"{k1:.4f},{k2:.4f}",
-                          plain_ms=f"{p1:.4f},{p2:.4f}")
-            return fields, (k1 + k2) / 2, (p1 + p2) / 2
+            b_ms, b_by = spmm_bound(csr, x.shape[1])
+            t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                     library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            fields.update(nnz=csr.nnz, kernel_ms=f"{k1:.4f},{k2:.4f}",
+                          plain_ms=f"{p1:.4f},{p2:.4f}",
+                          library_ms=f"{lib:.4f}",
+                          rel_err_library=f"{lib_err:.3e}",
+                          bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+                          share_of_bound=f"{b_ms / t['ms']:.4f}")
+            return fields, t
         log("spmm", t0, **fields)
-        return fields, None, None
+        return fields, None
 
     for m, n, k, dens in [(64, 256, 8, 0.05), (257, 640, 16, 0.01),
                           (40, 1000, 8, 0.001), (300, 129, 7, 0.05),
@@ -481,28 +649,29 @@ def phase_spmm_kernels(ops):
     _, _, G256 = gridding_leaf(ops[RADIAL_N])
     _, _, G128 = gridding_leaf(ops[128])
     t0 = time.time()
-    ell256 = csr_to_bell(jag_to_csr(G256.ell)).to(dev)
-    ellH128 = csr_to_bell(jag_to_csr(G128.ellH)).to(dev)
+    csr = {"G": jag_to_csr(G256.ell), "GH": jag_to_csr(G256.ellH),
+           "GH128": jag_to_csr(G128.ellH)}
+    ell256 = csr_to_bell(csr["G"]).to(dev)
+    ellH128 = csr_to_bell(csr["GH128"]).to(dev)
     log("spmm_build_ell", t0, G256=f"{ell256.R}x{ell256.W}",
         GH128=f"{ellH128.R}x{ellH128.W}",
         gb=f"{(ell256.memusage() + ellH128.memusage()) / 1e9:.2f}")
-    cases = [("jag", G256.ell, f"G {RADIAL_N}^2"),
-             ("jag", G256.ellH, f"G^H {RADIAL_N}^2"),
-             ("bell", ell256, f"G-ELL {RADIAL_N}^2"),
-             ("bell", ellH128, "G^H-ELL 128^2")]
-    for fmt, mat, label in cases:
+    cases = [("jag", G256.ell, f"G {RADIAL_N}^2", csr["G"]),
+             ("jag", G256.ellH, f"G^H {RADIAL_N}^2", csr["GH"]),
+             ("bell", ell256, f"G-ELL {RADIAL_N}^2", csr["G"]),
+             ("bell", ellH128, "G^H-ELL 128^2", csr["GH128"])]
+    for fmt, mat, label, A in cases:
         t0 = time.time()
         x = torch.from_numpy(rng.standard_normal(
             (mat.shape[1], K), dtype=np.float32)).to(dev)
         size = (dict(NB=mat.NB) if fmt == "jag"
                 else dict(R=mat.R, W=mat.W))
-        fields, ms, plain_ms = check(fmt, mat, x, label, time_it=True,
-                                     **size)
+        fields, t = check(fmt, mat, x, label, csr=A, **size)
         log("spmm", t0, **fields)
         # the main path's shapes: G at 256^2, as jag (K3) and as ELL (K4)
         if label.startswith("G ") or label.startswith("G-ELL"):
-            rec[fmt].update(ms=ms, plain_ms=plain_ms)
-    del ell256, ellH128
+            rec[fmt].update(t)
+    del ell256, ellH128, csr
     torch.cuda.empty_cache()
     return rec
 
@@ -685,15 +854,18 @@ def phase_toeplitz_kernels():
     import torch
     from indigo_tpu_torch.ops.dft_cuda import (
         kernel_spectrum, toeplitz_apply_cuda, toeplitz_apply_reference)
+    from indigo_tpu_torch.ops.toeplitz_fft import fft_pad2x, ifft_crop2x
     from indigo_tpu_torch.utils import rand64c, rel_err
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 5)
-    cases = [((8, 8, 8), 2), ((8, 16, 24), 3), ((16, 136, 8), 1),
-             ((128, 128, 128), 8), ((256, 256, 256), NC)]
+    batch = {(8, 8, 8): 2, (8, 16, 24): 3, (16, 136, 8): 1,
+             (24, 136, 40): 2, (8, 256, 16): 2, (128, 128, 128): 8,
+             (256, 256, 256): NC}
     worst = 0.0
     timing = {}
-    for shape, B in cases:
+    for shape in TOEPLITZ_SHAPES:
+        B = batch[shape]
         t0 = time.time()
         Tf = rng.standard_normal(tuple(2 * s for s in shape)).astype(
             np.float32)
@@ -712,19 +884,20 @@ def phase_toeplitz_kernels():
         fields = dict(shape="x".join(map(str, shape)), B=B,
                       rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
         if shape[0] >= 128:
-            reps = 5 if shape[0] == 128 else 3
-            p1 = timed(lambda: toeplitz_apply_reference(T, u), reps)
-            k1 = timed(lambda: toeplitz_apply_cuda(T, u), reps)
-            k2 = timed(lambda: toeplitz_apply_cuda(T, u), reps)
-            p2 = timed(lambda: toeplitz_apply_reference(T, u), reps)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            toeplitz_apply_cuda(T, u, events=ev)
-            torch.cuda.synchronize()
-            per = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-            timing[shape[0]] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-            fields.update(kernel_ms=f"{k1:.2f},{k2:.2f}",
-                          plain_ms=f"{p1:.2f},{p2:.2f}",
-                          a_b_c_ms=",".join(f"{x:.2f}" for x in per))
+            T_raw = torch.from_numpy(Tf).to(dev)
+            axes = (1, 2, 3)
+
+            def library():
+                return ifft_crop2x(T_raw * fft_pad2x(u, axes), axes)
+            lib_err = rel_err(library(), toeplitz_apply_cuda(T, u))
+            if not lib_err <= KERNEL_TOL:
+                raise AssertionError(f"library route vs K2 at {shape}: "
+                                     f"rel_err {lib_err:.3e}")
+            timing[shape[0]], tf = toeplitz_timing(
+                lambda events=None: toeplitz_apply_cuda(T, u, events=events),
+                lambda: toeplitz_apply_reference(T, u), library, shape, B, 0)
+            fields.update(tf, rel_err_library=f"{lib_err:.3e}")
+            del T_raw
         del T, u
         torch.cuda.empty_cache()
         log("toeplitz_kernel", t0, **fields)
@@ -820,8 +993,10 @@ def phase_tree_path():
     """Phase 6b: the Toeplitz operator-tree recipe at 256^3 / 8 coils.
     Returns the run's state for the cross-checks and its K2 launch count."""
     import torch
+    from indigo_tpu_torch import cg
     from indigo_tpu_torch.ops.dft_cuda import (
-        sense_normal_cuda, toeplitz_apply_cuda, toeplitz_apply_reference)
+        LAUNCHES_PER_CALL, sense_normal_cuda, toeplitz_apply_cuda,
+        toeplitz_apply_reference)
     from indigo_tpu_torch.utils import rel_err
 
     t0 = time.time()
@@ -838,7 +1013,8 @@ def phase_tree_path():
     torch.cuda.synchronize()
     launches = toeplitz_apply_cuda.launches
     leaf = toeplitz_leaf(st["N"])
-    per_solve = 3 * (ITERS + 1)   # the initial residual is one apply
+    # the initial residual is one apply
+    per_solve = LAUNCHES_PER_CALL * (ITERS + 1)
     if leaf.method != "pallas":
         raise AssertionError(f"tree path Toeplitz method {leaf.method}")
     if st["launches"] != [per_solve] * 3 or launches != 3 * per_solve:
@@ -866,6 +1042,8 @@ def phase_tree_path():
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"seconds={time.time() - t0:.3f}", flush=True)
     st["maps"] = maps
+    profile_solve("tree", lambda: cg(st["N"], st["rhs"], lamda=st["lamda"],
+                                     tol=0.0, maxiter=ITERS, history=True))
     return st, launches
 
 
@@ -943,44 +1121,28 @@ def main():
     tree, k2_launches = phase_tree_path()
     phase_tree_cross_checks(tree)
     del tree
-    t256 = timing[256]
-    record = {"kernels": [{
-        "name": "sense_normal_cuda (kernels A, B, C)",
-        "route": "cuda",
-        "source": "indigo_tpu_torch/csrc/sense_normal.cu",
-        "replaces": "indigo_tpu/ops/dft_pallas.py:643",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": t256["ms"],
-        "plain_ms": t256["plain_ms"],
-    }, {
-        "name": "toeplitz_apply_cuda (K2)",
-        "route": "cuda",
-        "source": "indigo_tpu_torch/csrc/sense_normal.cu",
-        "replaces": "indigo_tpu/ops/dft_pallas.py:759",
-        "launches": k2_launches,
-        "max_abs_err": k2_worst,
-        "ms": k2_timing[256]["ms"],
-        "plain_ms": k2_timing[256]["plain_ms"],
-    }, {
-        "name": "jag_spmm_cuda (K3)",
-        "route": "cuda",
-        "source": "indigo_tpu_torch/csrc/block_spmm.cu",
-        "replaces": "indigo_tpu/ops/ell_spmm.py:109",
-        "launches": k3_launches,
-        "max_abs_err": spmm_rec["jag"]["max_abs_err"],
-        "ms": spmm_rec["jag"]["ms"],
-        "plain_ms": spmm_rec["jag"]["plain_ms"],
-    }, {
-        "name": "ell_spmm_cuda (K4)",
-        "route": "cuda",
-        "source": "indigo_tpu_torch/csrc/block_spmm.cu",
-        "replaces": "indigo_tpu/ops/ell_spmm.py:61",
-        "launches": k4_launches,
-        "max_abs_err": spmm_rec["bell"]["max_abs_err"],
-        "ms": spmm_rec["bell"]["ms"],
-        "plain_ms": spmm_rec["bell"]["plain_ms"],
-    }]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(name, source, replaces, launches, worst, t):
+        return dict({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": worst}, **{k: t[k] for k in keys})
+
+    toeplitz_src = "indigo_tpu_torch/csrc/sense_normal.cu"
+    spmm_src = "indigo_tpu_torch/csrc/block_spmm.cu"
+    record = {"kernels": [
+        entry("sense_normal_cuda (K1, five passes)", toeplitz_src,
+              "indigo_tpu/ops/dft_pallas.py:643", launches, worst,
+              timing[256]),
+        entry("toeplitz_apply_cuda (K2, five passes)", toeplitz_src,
+              "indigo_tpu/ops/dft_pallas.py:759", k2_launches, k2_worst,
+              k2_timing[256]),
+        entry("jag_spmm_cuda (K3)", spmm_src, "indigo_tpu/ops/ell_spmm.py:109",
+              k3_launches, spmm_rec["jag"]["max_abs_err"], spmm_rec["jag"]),
+        entry("ell_spmm_cuda (K4)", spmm_src, "indigo_tpu/ops/ell_spmm.py:61",
+              k4_launches, spmm_rec["bell"]["max_abs_err"],
+              spmm_rec["bell"]),
+    ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

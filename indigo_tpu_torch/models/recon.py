@@ -49,15 +49,18 @@ class SenseRecon(nn.Module):
     with a warning below the floor. tol: 0 runs exactly ``iters`` CG steps;
     > 0 freezes the solve once ||r|| <= tol*||b|| and ``last_iters`` reports
     the count taken. precond: None or 'jacobi'. coil_chunk: coils per
-    normal-op call. device: where the payloads live and the solve runs. On
-    CUDA, 3D volumes the kernel takes (``ops.dft_cuda.supported``) run the
-    normal op through the CUDA kernel (``layout == "kernel"``); everything
-    else runs the plain torch pipeline (``"block"``).
+    normal-op call. device: where the payloads live and the solve runs;
+    the card by default, as the reference runs on its accelerator (without
+    one, building the pipeline raises where torch does; pass "cpu" to run
+    on the host). On CUDA, 3D volumes the kernel takes
+    (``ops.dft_cuda.supported``) run the normal op through the CUDA kernel
+    (``layout == "kernel"``); everything else runs the plain torch pipeline
+    (``"block"``).
     """
 
     def __init__(self, traj, maps, oversamp=1.25, width=4, lamda=None,
                  iters=30, tol=0.0, precond=None, dcf="radial",
-                 coil_chunk=None, device="cpu"):
+                 coil_chunk=None, device="cuda"):
         super().__init__()
         traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
         maps = np.asarray(maps, dtype=np.complex64)
@@ -100,7 +103,7 @@ class SenseRecon(nn.Module):
                     precond, coil_chunk, device)
 
     @classmethod
-    def from_arrays(cls, state, device="cpu", precond=None, tol=0.0,
+    def from_arrays(cls, state, device="cuda", precond=None, tol=0.0,
                     coil_chunk=None):
         """Build the pipeline from a state of numpy arrays (see
         ``convert.state_from_reference_arrays``) without recomputing any

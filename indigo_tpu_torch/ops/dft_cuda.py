@@ -8,7 +8,11 @@ Counterpart of ``indigo_tpu/ops/dft_pallas.py`` (``sense_normal_pallas``,
 
 ``sense_normal_cuda`` (K1) and ``toeplitz_apply_cuda`` (K2) launch the
 hand-written kernels of ``csrc/sense_normal.cu`` on the current CUDA stream
-— three kernels each, K2 being K1's family with the coil fusion turned off.
+— five axis passes each (z, y, x, y, z; ``LAUNCHES_PER_CALL``), K2 being
+K1's family with the coil fusion turned off. Each pass is a two-factor FFT
+in shared memory whose factors and twiddle table come from
+:func:`fft_factors` and :func:`fft_table`; :func:`four_step` applies the
+same transform in torch, in the kernels' index order, for the CPU tests.
 On CPU tensors they run ``sense_normal_reference`` and
 ``toeplitz_apply_reference``, the plain torch versions, which are also what
 the kernels are compared with on the card. The kernels are built on first
@@ -21,11 +25,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .dft_fft import block_spectrum, dft_pad2x_mats, toeplitz_apply_block
+from .dft_fft import block_spectrum, toeplitz_apply_block
 
 __all__ = ["kernel_spectrum", "supported", "sense_normal_reference",
            "sense_normal_cuda", "toeplitz_apply_reference",
-           "toeplitz_apply_cuda"]
+           "toeplitz_apply_cuda", "fft_factors", "fft_table",
+           "fft_positions", "four_step", "LAUNCHES_PER_CALL"]
+
+LAUNCHES_PER_CALL = 5  # kernel launches per sense_normal_cuda / K2 call
 
 
 def kernel_spectrum(Tf: np.ndarray) -> np.ndarray:
@@ -38,8 +45,9 @@ def kernel_spectrum(Tf: np.ndarray) -> np.ndarray:
 
 def supported(shape) -> bool:
     """True when the kernels take this volume: 3D, every dim a multiple of
-    8 and in [8, 256] (kernel B keeps 16 doubled x-lines in 96 KB of shared
-    memory at n3 = 256)."""
+    8 and in [8, 256] (n = p q with p in {8, 16} and q <= 32; a pencil
+    bundle of 256 rows x 16 columns, both halves, fills 70 KB of shared
+    memory)."""
     if len(shape) != 3:
         return False
     return all(s % 8 == 0 and 8 <= s <= 256 for s in shape)
@@ -76,17 +84,69 @@ def toeplitz_apply_reference(Tf, u):
 toeplitz_apply_reference.cuda_calls = 0
 
 
-@lru_cache(maxsize=16)
-def _kernel_mats(n1, n2, n3, device):
-    """The six stage matrices in the orientation each kernel reads."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def fft_factors(n: int):
+    """(p, q) with n = p q: the two factors of the kernels' n-point FFT.
+    p = 16 when 16 divides n, else 8 (radix-2 in registers); q = n / p
+    <= 32 (radix-2 in registers for 8 and 16, direct sums otherwise)."""
+    if n % 8 or not 8 <= n <= 256:
+        raise ValueError(f"no FFT plan for an axis of {n}")
+    p = 16 if n % 16 == 0 else 8
+    return p, n // p
 
-    mfz, miz = dft_pad2x_mats(n1)
-    mfy, miy = dft_pad2x_mats(n2)
-    mfx, mix = dft_pad2x_mats(n3)
-    return {"mfz": t(mfz), "mfy": t(mfy), "mfxT": t(mfx.T),
-            "mixT": t(mix.T), "miy": t(miy), "miz": t(miz)}
+
+def fft_table(n: int) -> np.ndarray:
+    """The axis's twiddle table as the kernels receive it: W_2n^k =
+    exp(-i pi k / n) for k < 2n, computed in float64, rounded to complex64.
+    It holds the doubling twiddle t (k < n), W_n^m (k = 2m) and the small
+    factors' W_p^m (k = 2qm) and W_q^m (k = 2pm)."""
+    return np.exp(-1j * np.pi * np.arange(2 * n) / n).astype(np.complex64)
+
+
+def fft_positions(n: int) -> np.ndarray:
+    """Row of frequency k after the kernels' forward transform:
+    q (k mod p) + k div p (frequency k1 + p k2 lands at row q k1 + k2)."""
+    p, q = fft_factors(n)
+    k = np.arange(n)
+    return q * (k % p) + k // p
+
+
+def four_step(x, inverse=False):
+    """The kernels' n-point transform along the last axis, with their
+    factors and f32 table, in their index order (complex128 arithmetic).
+
+    Forward: natural order in, :func:`fft_positions` order out. Inverse
+    (unnormalised, conjugate table): that order in, natural order out.
+    Forward: p-point DFTs along the stride-q runs, times W_n^{ab}, then
+    q-point DFTs along the contiguous runs; the inverse runs the same
+    steps in the other order."""
+    n = int(x.shape[-1])
+    p, q = fft_factors(n)
+    w = torch.from_numpy(fft_table(n)).to(torch.complex128)
+    if inverse:
+        w = w.conj()
+    ip, iq = torch.arange(p), torch.arange(q)
+    Fp = w[(ip[:, None] * ip[None, :]) % p * (2 * q)]      # W_p^{jk}
+    Fq = w[(iq[:, None] * iq[None, :]) % q * (2 * p)]      # W_q^{jk}
+    tw = w[2 * ip[:, None] * iq[None, :]]                  # W_n^{ab}
+    X = x.to(torch.complex128).reshape(x.shape[:-1] + (p, q))
+    if not inverse:
+        Y = torch.einsum("...jb,jk->...kb", X, Fp) * tw    # row q k1 + b
+        Z = torch.einsum("...aj,jk->...ak", Y, Fq)         # row q k1 + k2
+    else:
+        Y = torch.einsum("...aj,jk->...ak", X, Fq) * tw    # row q a + m1
+        Z = torch.einsum("...am,ak->...km", Y, Fp)         # row q m2 + m1
+    return Z.reshape(x.shape)
+
+
+@lru_cache(maxsize=16)
+def _fft_tables(n1, n2, n3, device):
+    """One device table of the three axes' twiddles, and each axis's
+    (offset, p)."""
+    tabs = [fft_table(n) for n in (n1, n2, n3)]
+    offs = np.cumsum([0] + [len(t) for t in tabs[:-1]])
+    tab = torch.from_numpy(np.concatenate(tabs)).to(device)
+    return tab, [(int(o), fft_factors(n)[0]) for o, n in zip(offs,
+                                                              (n1, n2, n3))]
 
 
 def _check(lib, code, what):
@@ -117,12 +177,15 @@ def _validate(name, Tf, v, maps=None):
         raise ValueError(f"{name}: Tf shape {tuple(Tf.shape)}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if Tf.data_ptr() % 16:
+        raise ValueError(f"{name}: Tf must start on a 16-byte boundary "
+                         "(the x pass copies it with 16-byte cp.async)")
 
 
 def _run(Tf, v, maps, events):
-    """Allocate t1, t2 and the output, then enqueue kernels A, B, C on the
-    current stream: K1's instances with ``maps``, K2's without. Each launch
-    adds one to its wrapper's count."""
+    """Allocate t1, t2 and the output, then enqueue the five axis passes
+    (z, y, x, y, z) on the current stream: K1's instances with ``maps``,
+    K2's without. Each launch adds one to its wrapper's count."""
     from ._build import load_library
 
     lib = load_library()
@@ -131,55 +194,49 @@ def _run(Tf, v, maps, events):
     cc = 1 if maps is None else int(maps.shape[0])
     B = S * cc
     dev = v.device
-    m = {k: a.data_ptr() for k, a in _kernel_mats(n1, n2, n3, dev).items()}
+    tab, axes = _fft_tables(n1, n2, n3, dev)
+    (tz, pz), (ty, py), (tx, px) = ((tab.data_ptr() + 8 * o, p)
+                                    for o, p in axes)
     t1 = torch.empty((B, 2 * n1, n2, n3), dtype=torch.complex64, device=dev)
     t2 = torch.empty((B, 2 * n1, 2 * n2, n3), dtype=torch.complex64,
                      device=dev)
     out = torch.empty_like(v)
     p1, p2, pv, po = t1.data_ptr(), t2.data_ptr(), v.data_ptr(), out.data_ptr()
-
-    def launched(code, what, i):
-        _check(lib, code, f"{fn.__name__} kernel {what}")
-        fn.launches += 1
-        if events is not None:
-            events[i].record()
+    pm = None if maps is None else maps.data_ptr()
 
     # the launchers size their grids for, and launch on, the current device
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream().cuda_stream
         if events is not None:
             events[0].record()
-        if maps is None:
-            code = lib.indigo_toeplitz_apply_a(pv, m["mfz"], m["mfy"], p1, p2,
-                                               S, n1, n2, n3, st)
-        else:
-            code = lib.indigo_sense_normal_a(pv, maps.data_ptr(), m["mfz"],
-                                             m["mfy"], p1, p2, S, cc, n1, n2,
-                                             n3, st)
-        launched(code, "A", 1)
-        launched(lib.indigo_sense_normal_b(p2, Tf.data_ptr(), m["mfxT"],
-                                           m["mixT"], B, n1, n2, n3, st),
-                 "B", 2)
-        if maps is None:
-            code = lib.indigo_toeplitz_apply_c(p2, p1, po, m["miy"], m["miz"],
-                                               S, n1, n2, n3, st)
-        else:
-            code = lib.indigo_sense_normal_c(p2, p1, maps.data_ptr(), po,
-                                             m["miy"], m["miz"], S, cc, n1,
-                                             n2, n3, st)
-        launched(code, "C", 3)
+        launches = (
+            ("z forward", lambda: lib.indigo_toeplitz_fz(
+                pv, pm, tz, pz, p1, S, cc, n1, n2, n3, st)),
+            ("y forward", lambda: lib.indigo_toeplitz_fy(
+                p1, ty, py, p2, B, n1, n2, n3, st)),
+            ("x", lambda: lib.indigo_toeplitz_x(
+                p2, Tf.data_ptr(), tx, px, B, n1, n2, n3, st)),
+            ("y inverse", lambda: lib.indigo_toeplitz_iy(
+                p2, ty, py, p1, B, n1, n2, n3, st)),
+            ("z inverse", lambda: lib.indigo_toeplitz_iz(
+                p1, pm, tz, pz, po, S, cc, n1, n2, n3, st)))
+        for i, (what, launch) in enumerate(launches, 1):
+            _check(lib, launch(), f"{fn.__name__} {what} pass")
+            fn.launches += 1
+            if events is not None:
+                events[i].record()
     return out
 
 
 def sense_normal_cuda(Tf, maps, v, events=None):
-    """Launch the CUDA Toeplitz SENSE normal op K1 (three kernels).
+    """Launch the CUDA Toeplitz SENSE normal op K1 (five kernels).
 
     Tf: (2n1, 2n2, 2n3) float32 (:func:`kernel_spectrum` layout); maps
     (nc, n1, n2, n3) and v (S, n1, n2, n3) complex64, contiguous, on one
     CUDA device. Returns (S, n1, n2, n3) complex64. CPU tensors run the
     plain version; anything else the kernels do not take raises.
-    ``events``: optional 4 ``torch.cuda.Event``s recorded before kernel A
-    and after each kernel, for per-kernel timing.
+    ``events``: optional ``LAUNCHES_PER_CALL + 1`` ``torch.cuda.Event``s
+    recorded before the first kernel and after each, for per-kernel timing.
     """
     if v.device.type == "cpu":
         return sense_normal_reference(Tf, maps, v)
@@ -191,7 +248,7 @@ sense_normal_cuda.launches = 0
 
 
 def toeplitz_apply_cuda(Tf, u, events=None):
-    """Launch the CUDA Toeplitz round trip K2 (three kernels): the
+    """Launch the CUDA Toeplitz round trip K2 (five kernels): the
     counterpart of ``toeplitz_apply_pallas``.
 
     Tf: (2n1, 2n2, 2n3) float32 (:func:`kernel_spectrum` layout); u

@@ -5,15 +5,18 @@ without jax, where tests/conftest.py (which imports jax) must be skipped:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q -rs
 
-Tolerance 1e-4 against the plain torch version: the kernel accumulates in
-f32 FMA in another order than cuBLAS.
+Tolerance 1e-4 against the plain torch version: the kernels' FFT stages
+round in f32 in another order than the plain matmul DFT on cuBLAS. The
+Toeplitz shapes cover every factor plan of the kernels: 16 x 16 (256),
+16 x 8 (128), 16 x q direct (16, 48, ...) and 8 x q direct (8, 24, 40, 136).
 """
 import numpy as np
 import pytest
 import torch
 
 from indigo_tpu_torch.ops.dft_cuda import (
-    kernel_spectrum, sense_normal_cuda, sense_normal_reference)
+    LAUNCHES_PER_CALL, kernel_spectrum, sense_normal_cuda,
+    sense_normal_reference)
 from indigo_tpu_torch.utils import rand64c, rel_err
 
 pytestmark = pytest.mark.cuda
@@ -36,13 +39,16 @@ def _inputs(rng, shape, S, nc, dev):
 @pytest.mark.parametrize("shape,S,nc", [((8, 8, 8), 1, 2),
                                         ((8, 16, 24), 2, 3),
                                         ((16, 136, 8), 1, 2),
-                                        ((24, 8, 136), 2, 1)])
+                                        ((24, 8, 136), 2, 1),
+                                        ((24, 136, 40), 1, 3),
+                                        ((8, 256, 16), 2, 2),
+                                        ((256, 16, 128), 1, 2)])
 def test_kernel_matches_plain(cuda, shape, S, nc):
     T, m, x = _inputs(np.random.default_rng(1), shape, S, nc, cuda)
     before = sense_normal_cuda.launches
     out = sense_normal_cuda(T, m, x)
     torch.cuda.synchronize()
-    assert sense_normal_cuda.launches == before + 3
+    assert sense_normal_cuda.launches == before + LAUNCHES_PER_CALL
     assert rel_err(out, sense_normal_reference(T, m, x)) < 1e-4
 
 
@@ -74,7 +80,8 @@ def test_recon_kernel_path_matches_cpu_plain_path(cuda):
     y = rand64c(nc * len(traj), rng=rng)
     before = sense_normal_cuda.launches
     xg, rg = gpu(y, return_resids=True)
-    assert sense_normal_cuda.launches - before == 3 * 8 * (nc // 2)
+    assert (sense_normal_cuda.launches - before
+            == LAUNCHES_PER_CALL * 8 * (nc // 2))
     xc, rc = cpu(y, return_resids=True)
     assert rel_err(xg, xc) < 1e-4
     assert rel_err(rg, rc) < 1e-4
@@ -83,7 +90,9 @@ def test_recon_kernel_path_matches_cpu_plain_path(cuda):
 # ---- Toeplitz round trip K2 (K1's family without the coil fusion) --------
 
 @pytest.mark.parametrize("shape,B", [((8, 8, 8), 2), ((8, 16, 24), 3),
-                                     ((16, 136, 8), 1), ((24, 8, 136), 2)])
+                                     ((16, 136, 8), 1), ((24, 8, 136), 2),
+                                     ((24, 136, 40), 2), ((8, 256, 16), 3),
+                                     ((128, 16, 256), 2)])
 def test_toeplitz_kernel_matches_plain(cuda, shape, B):
     from indigo_tpu_torch.ops.dft_cuda import (
         toeplitz_apply_cuda, toeplitz_apply_reference)
@@ -92,7 +101,7 @@ def test_toeplitz_kernel_matches_plain(cuda, shape, B):
     before = toeplitz_apply_cuda.launches
     out = toeplitz_apply_cuda(T, u)
     torch.cuda.synchronize()
-    assert toeplitz_apply_cuda.launches == before + 3
+    assert toeplitz_apply_cuda.launches == before + LAUNCHES_PER_CALL
     assert rel_err(out, toeplitz_apply_reference(T, u)) < 1e-4
 
 
@@ -108,6 +117,10 @@ def test_toeplitz_kernel_rejects_what_it_does_not_take(cuda):
     T2, _, u2 = _inputs(np.random.default_rng(8), (12, 8, 8), 1, 1, cuda)
     with pytest.raises(ValueError):
         toeplitz_apply_cuda(T2, u2)
+    shifted = torch.empty(T.numel() + 1, device=cuda)[1:].view(T.shape)
+    shifted.copy_(T)
+    with pytest.raises(ValueError):
+        toeplitz_apply_cuda(shifted, u)
     assert toeplitz_apply_cuda.launches == before
 
 
@@ -130,7 +143,7 @@ def test_toeplitz_normal_on_cuda_runs_the_kernel(cuda):
     before = toeplitz_apply_cuda.launches
     out_k, out_n = K * x.to(cuda), N * x.to(cuda)
     torch.cuda.synchronize()
-    assert toeplitz_apply_cuda.launches == before + 6
+    assert toeplitz_apply_cuda.launches == before + 2 * LAUNCHES_PER_CALL
     assert toeplitz_apply_reference.cuda_calls == plain
     assert rel_err(out_k, ref_k) < 1e-4
     assert rel_err(out_n, ref_n) < 1e-4

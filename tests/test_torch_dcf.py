@@ -82,7 +82,7 @@ def test_sense_recon_pipe_menon_matches_reference(rng, dim):
     maps = (0.6 + 0.2 * rand64c(2, *img, rng=rng)).astype(np.complex64)
     kw = dict(oversamp=2.0, width=4, iters=10, dcf="pipe_menon")
     j = JRecon(traj, maps, **kw)
-    p = SenseRecon(traj, maps, **kw)
+    p = SenseRecon(traj, maps, device="cpu", **kw)
     assert rel_err(p.wd.numpy(), j._w_sorted) < 1e-5
     y = rand64c(2 * len(traj), rng=rng)
     assert rel_err(p(y), j(y)) < 1e-4

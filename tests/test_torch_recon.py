@@ -66,7 +66,7 @@ def pair(request):
     traj = cfg["traj"]()
     maps = smooth_maps(cfg["img"], cfg["centers"])
     j = JRecon(traj, maps, **cfg["kw"])
-    p = SenseRecon(traj, maps, **cfg["kw"])
+    p = SenseRecon(traj, maps, device="cpu", **cfg["kw"])
     return j, p, traj, maps, cfg
 
 
@@ -125,7 +125,7 @@ def test_user_order_invariance(pair):
     _, p, traj, maps, cfg = pair
     rng = np.random.default_rng(5)
     shuffle = rng.permutation(len(traj))
-    p2 = SenseRecon(traj[shuffle], maps, **cfg["kw"])
+    p2 = SenseRecon(traj[shuffle], maps, device="cpu", **cfg["kw"])
     y = p.simulate(phantom(cfg["img"])).reshape(p.nc, -1)
     x_a = p(y.reshape(-1))
     x_b = p2(y[:, shuffle].reshape(-1))
@@ -149,7 +149,8 @@ def test_jacobi_tol_and_errors(pair):
     j, _, traj, maps, cfg = pair
     kw = dict(cfg["kw"], iters=40)
     jj = JRecon(traj, maps, precond="jacobi", tol=1e-3, **kw)
-    pp = SenseRecon(traj, maps, precond="jacobi", tol=1e-3, **kw)
+    pp = SenseRecon(traj, maps, precond="jacobi", tol=1e-3, device="cpu",
+                    **kw)
     y = j.simulate(phantom(cfg["img"]))
     assert rel_err(pp(y), jj(y)) < 1e-4
     assert pp.last_iters == jj.last_iters < 40
@@ -157,5 +158,21 @@ def test_jacobi_tol_and_errors(pair):
         pp(np.zeros(17, np.complex64))
     # dcf="pipe_menon" builds (it raised before it was ported) and matches
     jm = JRecon(traj, maps, dcf="pipe_menon", **kw)
-    pm = SenseRecon(traj, maps, dcf="pipe_menon", **kw)
+    pm = SenseRecon(traj, maps, dcf="pipe_menon", device="cpu", **kw)
     assert rel_err(pm(y), jm(y)) < 1e-4
+
+
+def test_default_device_is_cuda():
+    """SenseRecon runs on the card unless the caller asks for the CPU, as
+    the reference runs on its accelerator: with no card, building it with
+    no ``device`` raises where torch raises, and never falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default builds on it")
+    import inspect
+
+    for fn in (SenseRecon.__init__, SenseRecon.from_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    traj = radial_traj(16, 16)
+    maps = smooth_maps((8, 8), [(0.3, 0.3), (0.7, 0.7)])
+    with pytest.raises((AssertionError, RuntimeError)):
+        SenseRecon(traj, maps, oversamp=2.0, width=4, iters=2)

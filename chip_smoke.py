@@ -23,13 +23,20 @@ raises and exits non-zero):
      and that the plain normal op never ran on the GPU;
      a small problem is also reconstructed on the GPU and on the CPU and the
      two compared.
-  4. spmm kernels: K3 (jag_spmm_cuda) and K4 (ell_spmm_cuda) against their
-     plain versions on the card (rel_err <= 1e-5): small shapes at bm 8, 16
-     and 128, then the radial path's own matrices (G and G^H at 256^2 as
-     jag, G as ELL at 256^2, G^H as ELL at 128^2; 16 real columns), with
-     kernel, plain and library ms (cuSPARSE through torch.sparse.mm on the
-     same matrix as CSR; plain, kernel, library, kernel, plain) and the
-     bound from the nonzeros.
+  4. spmm kernels: K3 (jag_spmm_cuda) and K4 (ell_spmm_cuda), one
+     row-gather kernel on each matrix's row form, against their plain
+     versions on the card (rel_err <= 1e-5) and against a second launch
+     (bitwise equal): small shapes at bm 8, 16 and 128, then the radial
+     path's own matrices (G and G^H at 256^2 as jag, G as ELL at 256^2, G^H
+     as ELL at 128^2; 16 real columns), with each matrix's row-nonzero mean
+     and max, kernel, plain and library ms (cuSPARSE through
+     torch.sparse.mm on the same matrix as CSR; plain, kernel, library,
+     kernel, plain; kernel and library timed on the card with the host
+     ahead of it, since a kernel of ~30 us is shorter than its wrapper's
+     host time), the kernel's evented wall per call (host included), the
+     library's time over the kernel's, the bound from the nonzeros, and,
+     where rows are split across a block, the kernel's time at other split
+     thresholds and with none.
   5. radial 2D path: the reference's 2D radial CG-SENSE recipe at 256^2,
      8 coils, 384 spokes x 512 readout points (196,608 samples per coil),
      oversamp 1.5 (grid 384^2), width 4: sense_nufft_op(interp="sparse") on
@@ -61,8 +68,10 @@ raises and exits non-zero):
      iterations; the recipe at 32^3/4 coils on the GPU and on the CPU (and
      the device DCF on the GPU against the host DCF); SenseRecon(dcf=
      "pipe_menon") at 32^3 on the GPU and on the CPU. All <= 1e-4.
-After the counted runs, one warm solve of each 3D path runs under
-torch.profiler ([profile] lines: device time by kernel, busy share).
+After the counted runs, one warm solve of each 3D path and of the 2D radial
+path runs under torch.profiler ([profile] lines: device time by kernel,
+busy share; for the radial solve also K3's share and the launches per CG
+iteration).
 The line before the last holds the per-kernel JSON record (launches, error,
 kernel / plain / library ms, bound); the last line is the result object.
 """
@@ -182,7 +191,7 @@ def phase_device():
 def kernel_registers(ptxas_log):
     """[(kernel, registers, stack frame bytes)] from nvcc's -Xptxas -v
     output, each entry function named as in the source
-    (kern_inv<16,16,true>, block_spmm<16,16,true>)."""
+    (kern_inv<16,16,true>, row_spmm<4,true>)."""
     regs, name, stack = [], None, 0
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -195,7 +204,7 @@ def kernel_registers(ptxas_log):
         if m and name:
             # the digit is the mangled length prefix, which the namespace
             # tag of the file (..._block_spmm_cu_...) does not have
-            k = re.search(r"(?<=\d)(kern_fwd|kern_inv|kern_x|block_spmm)"
+            k = re.search(r"(?<=\d)(kern_fwd|kern_inv|kern_x|row_spmm)"
                           r"(I(?:L[ib]\d+E)+E)?", name)
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "") if k else []
             vals = [("true" if v == "1" else "false") if t == "b" else v
@@ -231,10 +240,42 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_solve(label, fn):
+def queued_ms(fn, reps):
+    """Mean ms per call of fn on the card, with the host ahead of it: a
+    sleep kernel holds the stream while the reps calls are enqueued, so the
+    events time them back to back on the card and not the host's enqueue
+    (a kernel of ~30 us is shorter than its wrapper's host time, which
+    ``timed`` would measure). Checks that the host did get ahead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card was still asleep
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("queued_ms: the host never got ahead of the card")
+
+
+def profile_solve(label, fn, kernel=None, iters=None):
     """One call of fn under torch.profiler: the device time by kernel (the
     CUDA activities CUPTI records, ctypes launches included), their union
-    against the host wall (busy share). Prints one [profile] line."""
+    against the host wall (busy share). Prints one [profile] line; with
+    ``kernel`` (a substring of a kernel's name) also that kernel's share of
+    the device time, and with ``iters`` the launches of it and of all
+    device activities per iteration."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,7 +286,7 @@ def profile_solve(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    spans, by_name = [], {}
+    spans, by_name, n_kernel = [], {}, 0
     for e in prof.events():
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
@@ -254,6 +295,7 @@ def profile_solve(label, fn):
         key = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
         key = key.split("(")[0].replace(" ", "")
         by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e6
+        n_kernel += bool(kernel) and kernel in key
     if not spans:
         print(f"[profile] path={label} wall_s={wall:.4f} device=not measured "
               "(no CUDA activity in the trace)", flush=True)
@@ -265,8 +307,15 @@ def profile_solve(label, fn):
     busy /= 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     dev = sum(by_name.values())
+    extra = ""
+    if kernel:
+        k_s = sum(t for k, t in by_name.items() if kernel in k)
+        extra += f"{kernel}_s={k_s:.4f} {kernel}_share={k_s / dev:.4f} "
+    if kernel and iters:
+        extra += (f"{kernel}_launches_per_iter={n_kernel / iters:.2f} "
+                  f"device_ops_per_iter={len(spans) / iters:.2f} ")
     print(f"[profile] path={label} wall_s={wall:.4f} device_s={dev:.4f} "
-          f"busy_s={busy:.4f} busy_share={busy / wall:.4f} top="
+          f"busy_s={busy:.4f} busy_share={busy / wall:.4f} {extra}top="
           + ";".join(f"{k}:{t:.4f}s:{t / dev:.3f}" for k, t in top[:8]),
           flush=True)
 
@@ -571,6 +620,8 @@ def reset_counts():
 def phase_spmm_kernels(ops):
     """K3 and K4 against their plain versions: small shapes, then the
     radial path's matrices. Returns per-kernel worst abs error and times."""
+    import copy
+
     import scipy.sparse as sp
     import torch
     from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
@@ -595,9 +646,16 @@ def phase_spmm_kernels(ops):
         if not err <= SPMM_TOL:
             raise AssertionError(f"{kern.__name__} vs plain at {label}: "
                                  f"rel_err {err:.3e}")
+        if not torch.equal(kern(mat, x), y):
+            raise AssertionError(f"{kern.__name__} at {label}: two launches "
+                                 "differ")
         rec[fmt]["max_abs_err"] = max(rec[fmt]["max_abs_err"], abs_err)
+        length = torch.diff(mat.row_ptr).float()
         fields.update(kernel=kern.__name__, at=label, bm=mat.bm,
                       fill=f"{mat.fill_fraction():.4f}",
+                      row_nnz_mean=f"{float(length.mean()):.2f}",
+                      row_nnz_max=int(length.max()),
+                      heavy_rows=mat.heavy_rows.numel(), bitwise_repeat=True,
                       rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
         if csr is not None:
             # the library route: cuSPARSE on the same matrix as CSR
@@ -613,20 +671,47 @@ def phase_spmm_kernels(ops):
             if not lib_err <= SPMM_TOL:
                 raise AssertionError(f"torch.sparse.mm vs plain at {label}: "
                                      f"rel_err {lib_err:.3e}")
+            # kernel and library: card time per call with the host ahead
+            # (queued_ms), the kernel's evented wall per call beside it;
+            # plain: back to back (ms-scale, hundreds of launches a call)
             p1 = timed(lambda: plain(mat, x), 10)
-            k1 = timed(lambda: kern(mat, x), 20)
-            lib = timed(library, 20)
-            k2 = timed(lambda: kern(mat, x), 20)
+            k1 = queued_ms(lambda: kern(mat, x), 50)
+            lib = queued_ms(library, 50)
+            k2 = queued_ms(lambda: kern(mat, x), 50)
             p2 = timed(lambda: plain(mat, x), 10)
+            wall = timed(lambda: kern(mat, x), 50)
             b_ms, b_by = spmm_bound(csr, x.shape[1])
             t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                      library_ms=lib, bound_ms=b_ms, bound_by=b_by)
             fields.update(nnz=csr.nnz, kernel_ms=f"{k1:.4f},{k2:.4f}",
                           plain_ms=f"{p1:.4f},{p2:.4f}",
                           library_ms=f"{lib:.4f}",
+                          library_over_kernel=f"{lib / t['ms']:.2f}",
+                          kernel_wall_ms_per_call=f"{wall:.4f}",
                           rel_err_library=f"{lib_err:.3e}",
                           bound_ms=f"{b_ms:.5f}", bound_by=b_by,
                           share_of_bound=f"{b_ms / t['ms']:.4f}")
+            if mat.heavy_rows.numel():
+                # the same kernel with other heavy-row thresholds (none: no
+                # row split, every row on one unit), the list derived as
+                # sparse.py does: rows over the threshold, longest first
+                alt = copy.deepcopy(mat)
+                length = torch.diff(mat.row_ptr)
+                sweep = []
+                for T in (64, 256, None, mat.heavy_nnz):
+                    over = length > (T or length.max())
+                    rows = torch.nonzero(over).flatten()
+                    rows = rows[torch.argsort(-length[rows], stable=True)]
+                    alt.heavy_rows, alt.heavy_nnz = rows.int(), T
+                    alt_err = rel_err(kern(alt, x), y)
+                    if not alt_err <= SPMM_TOL:
+                        raise AssertionError(f"{label}: heavy rows over {T} "
+                                             f"vs {mat.heavy_nnz}: rel_err "
+                                             f"{alt_err:.3e}")
+                    sweep.append(f"{T or 'none'}:"
+                                 f"{queued_ms(lambda: kern(alt, x), 50):.4f}")
+                fields.update(heavy_threshold_ms=",".join(sweep))
+                del alt
             return fields, t
         log("spmm", t0, **fields)
         return fields, None
@@ -789,6 +874,8 @@ def phase_radial(ops):
           f"s_per_iter={times[1] / RADIAL_ITERS:.4f} k3_launches={launches} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
           flush=True)
+    profile_solve("radial", lambda: radial_solve(A, b), kernel="row_spmm",
+                  iters=RADIAL_ITERS)
     return launches
 
 

@@ -115,8 +115,8 @@ def _declare(lib):
     lib.indigo_toeplitz_x.argtypes = [P, P, P, I, I, I, I, I, P]
     lib.indigo_toeplitz_iy.argtypes = [P, P, I, P, I, I, I, I, P]
     lib.indigo_toeplitz_iz.argtypes = [P, P, P, I, P, I, I, I, I, I, P]
-    lib.indigo_jag_spmm.argtypes = [P, P, P, I, I, P, P, I, I, I, P]
-    lib.indigo_ell_spmm.argtypes = [P, P, I, I, I, P, P, I, I, I, P]
+    lib.indigo_jag_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
+    lib.indigo_ell_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
     for fn in (lib.indigo_toeplitz_fz, lib.indigo_toeplitz_fy,
                lib.indigo_toeplitz_x, lib.indigo_toeplitz_iy,
                lib.indigo_toeplitz_iz, lib.indigo_jag_spmm,

@@ -20,6 +20,14 @@ packages). Complex data is native complex64 (the reference splits it into
 buffers, so ``.to(device)`` moves it. ``jag_spmm``, ``bell_spmm`` and
 ``element_spmm`` are the plain torch versions: the CPU path, and what the
 CUDA kernels are held against on the card.
+
+The dense tiles exist for the TPU's matrix unit. A real-valued
+:class:`BlockedJag` or :class:`BlockedELL` also derives, on the host and
+from its own ``data``, the *row form* that K3 and K4 read on the card: the
+stored nonzeros in CSR order (``row_ptr``, ``nz_col``, ``nz_val``; ELL
+padding, zeros inside a tile and entries past the matrix edge drop out)
+and ``heavy_rows``, the rows longer than ``heavy_nnz`` nonzeros, longest
+first, which the kernel splits across one CUDA block.
 """
 from __future__ import annotations
 
@@ -46,6 +54,15 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+# a row with more stored nonzeros than this is split across one CUDA block by
+# K3/K4 (G^H of the 2D radial recipe has rows of up to ~2,000 near the
+# k-space centre, where its mean is 21; chip_smoke.py times other values)
+HEAVY_ROW_NNZ = 128
+# the kernels index the row form with int32
+MAX_ROW_NNZ = 2**31 - 1
+_ROW_FORM = ("row_ptr", "nz_col", "nz_val", "heavy_rows")
+
+
 class _Format(nn.Module):
     """Shared surface: logical ``shape`` (M, N), ``nnz``, ``data``."""
 
@@ -53,6 +70,33 @@ class _Format(nn.Module):
         super().__init__()
         self.shape = tuple(int(s) for s in shape)
         self.nnz = int(nnz)
+
+    def _derive_rows(self):
+        """Register the row form from ``_stored_entries()``: CSR with
+        duplicates summed, columns sorted, entries outside (M, N) dropped;
+        all None for complex data, which keeps the plain path. ``heavy_nnz``
+        records the threshold ``heavy_rows`` was derived with."""
+        self.heavy_nnz = heavy_nnz = HEAVY_ROW_NNZ
+        if self.data.is_complex():
+            for name in _ROW_FORM:
+                self.register_buffer(name, None)
+            return
+        rows, cols, vals = self._stored_entries(_np(self.data))
+        M, N = self.shape
+        keep = (rows < M) & (cols < N)
+        csr = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])),
+                            shape=(M, N))
+        if csr.nnz > MAX_ROW_NNZ:
+            raise ValueError(f"{csr.nnz} stored nonzeros: the row form "
+                             f"indexes at most {MAX_ROW_NNZ} with int32")
+        length = np.diff(csr.indptr)
+        heavy = np.flatnonzero(length > heavy_nnz)
+        heavy = heavy[np.argsort(-length[heavy], kind="stable")]
+        for name, a in (("row_ptr", csr.indptr.astype(np.int32)),
+                        ("nz_col", csr.indices.astype(np.int32)),
+                        ("nz_val", csr.data),
+                        ("heavy_rows", heavy.astype(np.int32))):
+            self.register_buffer(name, _t(a).to(self.data.device))
 
     @property
     def dtype(self):
@@ -73,12 +117,21 @@ class BlockedELL(_Format):
     data: (R, W, bm, bn) dense blocks, float32 or complex64.
     cols: (R, W) int32 column-block indices; padding slots point at block 0
     with all-zero data. R = ceil(M/bm), C = ceil(N/bn).
+    row_ptr, nz_col, nz_val, heavy_rows: the row form (module docstring).
     """
 
     def __init__(self, data, cols, shape, nnz=0):
         super().__init__(shape, nnz)
         self.register_buffer("data", torch.as_tensor(data))
         self.register_buffer("cols", torch.as_tensor(cols))
+        self._derive_rows()
+
+    def _stored_entries(self, d):
+        """(row, column, value) of every nonzero of the tiles ``d``."""
+        r, w, i, j = np.nonzero(d)
+        return (r.astype(np.int64) * self.bm + i,
+                _np(self.cols)[r, w].astype(np.int64) * self.bn + j,
+                d[r, w, i, j])
 
     bm = property(lambda self: self.data.shape[2])
     bn = property(lambda self: self.data.shape[3])
@@ -156,9 +209,9 @@ class BlockedJag(_Format):
     brows: (NB,) int32 row-block index, non-decreasing; every block row in
            [0, R) appears at least once (an empty row carries one zero
            block), as the reference lays it out
-    bptr:  (R+1,) int32 offsets of each block row's run in ``brows`` —
-           computed on the host, because a CUDA block loads its own block
-           range (the TPU kernel instead scalar-prefetched ``brows``)
+    bptr:  (R+1,) int32 offsets of each block row's run in ``brows``,
+           computed on the host (the TPU kernel scalar-prefetched ``brows``)
+    row_ptr, nz_col, nz_val, heavy_rows: the row form (module docstring).
     """
 
     def __init__(self, data, bcols, brows, shape, nnz=0):
@@ -169,6 +222,14 @@ class BlockedJag(_Format):
         self.register_buffer("bptr", _t(np.searchsorted(
             _np(self.brows), np.arange(self.R + 1)).astype(np.int32)).to(
                 self.brows.device))
+        self._derive_rows()
+
+    def _stored_entries(self, d):
+        """(row, column, value) of every nonzero of the tiles ``d``."""
+        b, i, j = np.nonzero(d)
+        return (_np(self.brows)[b].astype(np.int64) * self.bm + i,
+                _np(self.bcols)[b].astype(np.int64) * self.bn + j,
+                d[b, i, j])
 
     bm = property(lambda self: self.data.shape[1])
     bn = property(lambda self: self.data.shape[2])

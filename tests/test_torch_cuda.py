@@ -228,13 +228,16 @@ def test_spmm_dispatch_complex_x(cuda):
 
 
 def test_spmm_kernels_reject_what_they_do_not_take(cuda):
+    """Wrong dtypes, layouts, devices and shapes raise before any launch;
+    any bm now runs (the kernel reads the row form, not the tiles)."""
     from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
-    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+    from indigo_tpu_torch.sparse import (bell_spmm, csr_to_bell, csr_to_jag,
+                                         jag_spmm)
 
     rng = np.random.default_rng(6)
     A = _sparse(rng, 64, 256, 0.05)
-    for conv, kern in ((csr_to_jag, jag_spmm_cuda),
-                       (csr_to_bell, ell_spmm_cuda)):
+    for conv, kern, plain in ((csr_to_jag, jag_spmm_cuda, jag_spmm),
+                              (csr_to_bell, ell_spmm_cuda, bell_spmm)):
         mat = conv(A).to(cuda)
         x = torch.randn(256, 8, device=cuda)
         with pytest.raises(TypeError):
@@ -245,5 +248,92 @@ def test_spmm_kernels_reject_what_they_do_not_take(cuda):
             kern(conv(A), x)
         with pytest.raises(ValueError):
             kern(mat, x[:100])
-        with pytest.raises(ValueError):
-            kern(conv(A, bm=24).to(cuda), x)
+        with pytest.raises(TypeError):
+            kern(conv((A * 1j).astype(np.complex64)).to(cuda), x)
+        odd = conv(A, bm=24).to(cuda)
+        assert rel_err(kern(odd, x), plain(odd, x)) < 1e-5
+
+
+def _both_kernels(A, bm=16):
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import (bell_spmm, csr_to_bell, csr_to_jag,
+                                         jag_spmm)
+
+    return ((csr_to_jag(A, bm=bm), jag_spmm_cuda, jag_spmm),
+            (csr_to_bell(A, bm=bm), ell_spmm_cuda, bell_spmm))
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 32, 128])
+def test_spmm_kernels_any_width(cuda, k):
+    """Every lane layout: float4 lanes for K % 4 == 0 (K = 16 the radial
+    path's), scalar lanes otherwise, column chunks past one group."""
+    rng = np.random.default_rng(10)
+    A = _sparse(rng, 300, 700, 0.03)
+    x = torch.from_numpy(rng.standard_normal((700, k), dtype=np.float32))
+    for mat, kern, plain in _both_kernels(A):
+        mat, xc = mat.to(cuda), x.to(cuda)
+        y = kern(mat, xc)
+        assert rel_err(y, plain(mat, xc)) < 1e-5
+        assert rel_err(y, A @ x.numpy()) < 1e-5
+
+
+def test_spmm_kernels_heavy_row_beside_empty_rows(cuda):
+    """A 2,500-nonzero row (split across the warps of one block) and a
+    300-nonzero one among empty rows: right, and the empty rows exactly 0."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(11)
+    n = 4000
+    cols = np.r_[rng.choice(n, 2500, replace=False),
+                 rng.choice(n, 300, replace=False), [7, 9]]
+    rows = np.r_[np.full(2500, 37), np.full(300, 90), [91, 91]]
+    A = sp.csr_matrix((rng.standard_normal(len(cols)).astype(np.float32),
+                       (rows, cols)), shape=(128, n))
+    x = torch.from_numpy(rng.standard_normal((n, 16), dtype=np.float32))
+    for mat, kern, plain in _both_kernels(A):
+        assert mat.heavy_rows.tolist() == [37, 90]
+        mat, xc = mat.to(cuda), x.to(cuda)
+        y = kern(mat, xc)
+        assert rel_err(y, plain(mat, xc)) < 1e-5
+        assert rel_err(y, A @ x.numpy()) < 1e-5
+        empty = np.setdiff1d(np.arange(128), [37, 90, 91])
+        assert (y[torch.from_numpy(empty).to(cuda)] == 0).all()
+
+
+def test_spmm_kernels_unaligned_x(cuda):
+    """x at a 4-byte offset (not 16-byte aligned) takes the scalar lanes of
+    the same kernel and gives the aligned result."""
+    rng = np.random.default_rng(12)
+    A = _sparse(rng, 200, 500, 0.05)
+    x = torch.from_numpy(rng.standard_normal((500, 16), dtype=np.float32))
+    for mat, kern, _ in _both_kernels(A):
+        mat = mat.to(cuda)
+        buf = torch.empty(500 * 16 + 1, device=cuda)
+        shifted = buf[1:].view(500, 16)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+        aligned = kern(mat, x.to(cuda))
+        assert rel_err(kern(mat, shifted), aligned) < 1e-6
+        assert rel_err(aligned, A @ x.numpy()) < 1e-5
+
+
+def test_spmm_kernels_bitwise_deterministic_and_equal(cuda):
+    """Two launches give the same bits, and K3 and K4 on one matrix (same
+    row form) give the same bits, heavy rows included."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(13)
+    A = sp.random(500, 3000, density=0.01, random_state=rng, format="lil",
+                  dtype=np.float32)
+    A[5, :] = rng.standard_normal(3000).astype(np.float32)
+    A = sp.csr_matrix(A)
+    x = torch.from_numpy(rng.standard_normal((3000, 16),
+                                             dtype=np.float32)).to(cuda)
+    ys = []
+    for mat, kern, _ in _both_kernels(A):
+        mat = mat.to(cuda)
+        assert mat.heavy_rows.tolist() == [5]
+        y1, y2 = kern(mat, x), kern(mat, x)
+        assert torch.equal(y1, y2)
+        ys.append(y1)
+    assert torch.equal(ys[0], ys[1])

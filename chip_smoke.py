@@ -5,7 +5,7 @@
 Phases (each prints one line with its numbers and seconds; any failure
 raises and exits non-zero):
   0. device: requires CUDA (there is no CPU fallback); prints the card, its
-     power limit (nvidia-smi), torch and CUDA versions.
+     power limit (nvidia-smi), torch, CUDA and Triton versions.
   1. build: compiles the CUDA kernels from csrc/ (nvcc, first use) and
      prints each kernel's registers and any stack frame (ptxas -v).
   2. kernel vs plain: sense_normal_cuda against sense_normal_reference on the
@@ -22,7 +22,8 @@ raises and exits non-zero):
      kernel launch count (5 passes per K1 call, 2 calls per CG iteration)
      and that the plain normal op never ran on the GPU;
      a small problem is also reconstructed on the GPU and on the CPU and the
-     two compared.
+     two compared, at 32^3 (periodic tiling, GridDFT) and at 16^3 (grid
+     20^3, which the tiling does not cover: KBInterp * CenteredDFT).
   4. spmm kernels: K3 (jag_spmm_cuda) and K4 (ell_spmm_cuda), one
      row-gather kernel on each matrix's row form, against their plain
      versions on the card (rel_err <= 1e-5) and against a second launch
@@ -68,10 +69,47 @@ raises and exits non-zero):
      iterations; the recipe at 32^3/4 coils on the GPU and on the CPU (and
      the device DCF on the GPU against the host DCF); SenseRecon(dcf=
      "pipe_menon") at 32^3 on the GPU and on the CPU. All <= 1e-4.
-After the counted runs, one warm solve of each 3D path and of the 2D radial
-path runs under torch.profiler ([profile] lines: device time by kernel,
-busy share; for the radial solve also K3's share and the launches per CG
-iteration).
+  7. Cartesian CG-SENSE with the tree optimizer (the reference's config-1
+     recipe as a 3D scan): 256^3, 8 coils, the serving lane's maps and
+     phantom; mask fully sampled along axis 0, every 2nd line in axes 1 and
+     2 plus a 32 x 32 fully sampled centre (26 % of k-space).
+     A = cartesian_sense_op(mask, maps) (on the GPU by its default),
+     y = A x + 1 % noise,
+     N = (A.H * A).optimize() (host spGEMM: Mask.H * Mask fuses into one
+     Diag; seconds and peak host memory printed), rhs = A.H * y, lamda =
+     1e-3 x max_eigen(N), two solves of cg(N, rhs, lamda, tol=0,
+     maxiter=10, history=True). Checks: the nonzero cap of the fusion was
+     not hit and no Mask leaf is left in N; one apply of N equals one of
+     A.H * A (<= 1e-5); finite, decreasing residuals; a finite image.
+     Small check, GPU and CPU: the recipe exactly as
+     examples/cartesian_sense_2d.py writes it (SpMatrix(P) * UnscaledFFT *
+     Diag, optimize, cg at lamda 1e-6) at 128^2. Its system is singular,
+     so rounding decides the image's null-space part: each device is held
+     to the example's own bar (data consistency < 1e-3) and, for the part
+     of its image in range(A^H) (projected in float64), to the float64
+     minimum-norm solution and to the other device (<= 1e-4, or twice the
+     f32 storage rounding of the whole image where that is larger); the
+     images of the same optimized operator at a well-posed lamda are
+     compared whole (<= 1e-4).
+  8. l1-wavelet FISTA (the reference's config-4 recipe,
+     examples/cs_wavelet_fista.py, in 3D): the same 256^3 / 8 coils; a
+     variable-density mask in axes 1-2 (the example's density law per
+     axis, their product, 24 x 24 centre, ~6x undersampling), fully
+     sampled along axis 0; W = DWT(256^3, db4, 3 levels); L = 1.05 x
+     max_eigen(A.H * A, 30 iterations); two runs of apgd(gradf, proxg,
+     1/L, maxiter=30, history=True, objective=...) in the wavelet domain.
+     Checks: finite; the objective falls over the run and over its second
+     half, and no single iteration raises it by more than 1e-3; the CS
+     image is closer to the phantom than the zero-filled one. Prints s per
+     iteration beside its bytes floor (the operators' cost() bytes over
+     the card's memory rate) and the ms of W, W.H, A, A.H and the prox one
+     by one. Small check, GPU vs CPU (<= 1e-4): the example's defaults
+     (128^2, 4 coils, 100 iterations).
+  Neither of these two paths launches a hand-written kernel (the reference
+  runs them without one): their [profile] lines say where their time goes.
+After the counted runs, one warm solve of each path runs under
+torch.profiler ([profile] lines: device time by kernel, busy share; for the
+radial solve also K3's share and the launches per CG iteration).
 The line before the last holds the per-kernel JSON record (launches, error,
 kernel / plain / library ms, bound); the last line is the result object.
 """
@@ -183,9 +221,14 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    try:  # the port uses no Triton; the version is recorded for later work
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = "not installed"
     log("device", t0, name=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda)
+        cuda=torch.version.cuda, triton=triton_version)
 
 
 def kernel_registers(ptxas_log):
@@ -443,6 +486,26 @@ def small_path_check():
     torch.cuda.empty_cache()
     log("path_small", t0, shape="32^3", nc=4, rel_err_gpu_vs_cpu=f"{err:.3e}")
 
+    # grid 20^3 is not a multiple of the (4, 4, 8) tile: the halo plan
+    t0 = time.time()
+    from indigo_tpu_torch.operators import KBInterp
+    traj = kooshball_traj(96, 16, seed=SEED)
+    maps = coil_maps(16, 2, seed=SEED)
+    kw = dict(oversamp=OVERSAMP, width=WIDTH, iters=ITERS)
+    gpu = SenseRecon(traj, maps, device="cuda", **kw)
+    cpu = SenseRecon(traj, maps, device="cpu", **kw)
+    if not any(isinstance(m, KBInterp) for m in gpu.A.modules()):
+        raise AssertionError("16^3 recon did not take the halo gridding")
+    y = gpu.simulate(phantom(16))
+    y = y + 0.01 * np.abs(y).max() * rand64c(y.shape[0], rng=SEED)
+    err = rel_err(gpu(y), cpu(y))
+    if not err <= PATH_TOL:
+        raise AssertionError(f"16^3 halo recon GPU vs CPU rel_err {err:.3e}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    log("path_small_halo", t0, shape="16^3", grid="20^3", nc=2,
+        rel_err_gpu_vs_cpu=f"{err:.3e}")
+
 
 def phase_main_path():
     import torch
@@ -578,7 +641,7 @@ def radial_problem(n, nc):
     traj = radial_traj(int(n * 1.5), 2 * n)
     maps = smooth_maps_2d(nc, (n, n), rng)
     A, plan = sense_nufft_op(traj, maps, oversamp=1.5, width=4,
-                             interp="sparse")
+                             interp="sparse", device="cpu")
     return A, plan, ellipse_phantom((n, n)).ravel()
 
 
@@ -1030,8 +1093,8 @@ def tree_recipe(traj, maps, x_true, device, w=None, solves=1,
                                device=device)
     lap("spectrum_s", t0)
     t0 = time.time()
-    A, plan = sense_nufft_op(traj, maps, oversamp=OVERSAMP, width=WIDTH)
-    A = A.to(device)
+    A, plan = sense_nufft_op(traj, maps, oversamp=OVERSAMP, width=WIDTH,
+                             device=device)
     N = sense_normal_toeplitz(Tf, maps).to(device)
     lap("operator_s", t0)
     wd = torch.from_numpy(np.tile(w[plan.perm], nc).astype(np.float32))
@@ -1191,6 +1254,483 @@ def phase_tree_cross_checks(st):
         rel_err_tree_gpu_vs_cpu=f"{err_x:.3e}",
         rel_err_senserecon_pipe_menon_gpu_vs_cpu=f"{err_sr:.3e}")
 
+CART_ITERS, FISTA_ITERS, EIGEN_ITERS = 10, 30, 30
+FISTA_LAM_FRACTION = 0.002  # lam as a fraction of max |W A^H y|
+
+
+def leaf_kinds(op):
+    from indigo_tpu_torch.operators import Operator
+    return sorted({type(m).__name__ for m in op.modules()
+                   if isinstance(m, Operator) and not m.children()})
+
+
+def host_peak_gb():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def cartesian_example_problem(n):
+    """make_problem of examples/cartesian_sense_2d.py: the sampling matrix
+    P (every 2nd row plus the centre quarter), the smooth diagonal d and
+    the ellipse phantom."""
+    import scipy.sparse as sp
+    keep = np.zeros(n, dtype=bool)
+    keep[::2] = True
+    keep[n // 2 - n // 8: n // 2 + n // 8] = True
+    rows = np.flatnonzero(np.repeat(keep, n))
+    P = sp.csr_matrix(
+        (np.ones(len(rows), np.float32), (np.arange(len(rows)), rows)),
+        shape=(len(rows), n * n))
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    d = (0.5 + np.exp(-((xx - 0.5) ** 2 + (yy - 0.5) ** 2) * 4)).astype(
+        np.complex64)
+    return P, d.ravel(), ellipse_phantom((n, n)).ravel()
+
+
+def example_float64(P, d, n):
+    """The example's operator A = P F diag(d) in float64 numpy, and A^+ =
+    A^H (A A^H)^-1 (A has full row rank and A A^H the condition
+    (max|d| / min|d|)^2 <= 9, so float64 CG inverts it to rounding).
+    A^+ A is the orthogonal projector onto range(A^H), A^+ y the
+    minimum-norm solution: what cg from x0 = 0 gives in exact arithmetic,
+    and the lamda -> 0 limit of the regularized one."""
+    from indigo_tpu_torch import oracle
+    P64, d64 = P.astype(np.float64), d.astype(np.complex128)
+
+    def A(x):
+        return P64 @ np.fft.fftn((d64 * x).reshape(n, n)).ravel()
+
+    def AH(y):
+        return np.conj(d64) * (n * n) * np.fft.ifftn(
+            (P64.T @ y).reshape(n, n)).ravel()
+
+    def pinv(y):
+        z, _ = oracle.cg(lambda v: A(AH(v)), y, tol=1e-14, maxiter=200)
+        return AH(z)
+
+    return A, pinv
+
+
+def cartesian_example_solve(pkg, P, d, x_true, n, lam_posed, place=None):
+    """The example's recipe with package ``pkg`` (``place`` moves the tree):
+    A = (SpMatrix(P) * UnscaledFFT * Diag(d)).optimize(), y = A x,
+    AHA = (A.H * A).optimize(), cg(AHA, A.H y, lamda=1e-6, tol=1e-8,
+    maxiter=100); then the same system at ``lam_posed``. Returns the two
+    images (numpy), the iterations and AHA."""
+    A = pkg.SpMatrix(P) * pkg.UnscaledFFT((n, n)) * pkg.Diag(d)
+    A = (place(A) if place else A).optimize()
+    y = A * x_true
+    AHA = (A.H * A).optimize()
+    rhs = A.H * y
+    x, info = pkg.cg(AHA, rhs, lamda=1e-6, tol=1e-8, maxiter=100)
+    xr, _ = pkg.cg(AHA, rhs, lamda=lam_posed, tol=1e-8, maxiter=100)
+    host = (lambda t: t.cpu().numpy()) if hasattr(x, "cpu") else np.asarray
+    return host(x), host(xr), int(info["iters"]), AHA
+
+
+def range_part(x, y64, x_mn, A64, pinv):
+    """Readings of one f32 image x of the example's singular system against
+    the float64 witness: data consistency |A x - y| / |y|; |x| over the norm
+    of its part in range(A^H); that part against the minimum-norm solution;
+    and the bar it is held to. x is stored in f32, so its range part carries
+    eps32 |x| of rounding from storage alone: the bar is PATH_TOL, or twice
+    that rounding where the null-space part makes it larger."""
+    from indigo_tpu_torch.utils import rel_err
+    x = np.asarray(x, np.complex128).ravel()
+    px = pinv(A64(x))
+    ratio = float(np.linalg.norm(x) / np.linalg.norm(px))
+    bar = max(PATH_TOL, 2 * float(np.finfo(np.float32).eps) * ratio)
+    return {"dc": rel_err(A64(x), y64), "ratio": ratio, "px": px,
+            "err": rel_err(px, x_mn), "bar": bar}
+
+
+def cartesian_small_check():
+    """The config-1 recipe as the example writes it, at 128^2, on the GPU
+    and on the CPU (``cartesian_example_solve``).
+
+    The example's system is singular (one coil, undersampled) and its
+    lamda 1e-6 lies under f32 rounding of a spectrum of ~3.7e4, so each f32
+    image carries a null-space part that rounding decides and 1 / lamda
+    amplifies; the example itself asserts data consistency only. What the
+    data determine is the part in range(A^H). So each device is held to the
+    example's data-consistency bar, and its range part (projected in
+    float64, ``example_float64``) to the float64 minimum-norm solution and
+    to the other device's (``range_part`` states the bar). The whole images
+    are compared where the solution is unique: lamda at 1e-2 of the largest
+    eigenvalue n^2 max|d|^2."""
+    import indigo_tpu_torch as it
+    from indigo_tpu_torch.utils import rel_err
+
+    t0 = time.time()
+    n = 128
+    P, d, x_true = cartesian_example_problem(n)
+    lam = 1e-2 * n * n * float(np.abs(d).max()) ** 2
+    A64, pinv = example_float64(P, d, n)
+    y64 = A64(x_true.astype(np.complex128))
+    x_mn = pinv(y64)
+    out, read = {}, {}
+    for dev in ("cuda", "cpu"):
+        x, xr, iters, AHA = cartesian_example_solve(
+            it, P, d, x_true, n, lam, place=lambda A: A.to(dev))
+        if "SpMatrix" in leaf_kinds(AHA):
+            raise AssertionError(f"128^2 example recipe on {dev}: P^H P did "
+                                 f"not fuse: {leaf_kinds(AHA)}")
+        r = read[dev] = range_part(x, y64, x_mn, A64, pinv)
+        if not r["dc"] < 1e-3:
+            raise AssertionError(f"128^2 example recipe on {dev}: data "
+                                 f"consistency {r['dc']:.3e}")
+        if not r["err"] <= r["bar"]:
+            raise AssertionError(
+                f"128^2 example recipe on {dev}: range part vs the float64 "
+                f"minimum-norm solution {r['err']:.3e} > {r['bar']:.3e}")
+        out[dev] = (x, xr, iters)
+    err_raw = rel_err(out["cuda"][0], out["cpu"][0])
+    err_range = rel_err(read["cuda"]["px"], read["cpu"]["px"])
+    bar = read["cuda"]["bar"] + read["cpu"]["bar"]
+    if not err_range <= bar:
+        raise AssertionError(f"128^2 example recipe: range parts GPU vs CPU "
+                             f"{err_range:.3e} > {bar:.3e}")
+    err = rel_err(out["cuda"][1], out["cpu"][1])
+    if not err <= PATH_TOL:
+        raise AssertionError(f"128^2 example recipe, lamda={lam:.4g}: GPU vs "
+                             f"CPU {err:.3e}")
+    fields = {}
+    for dev, key in (("cuda", "gpu"), ("cpu", "cpu")):
+        r = read[dev]
+        fields[f"data_consistency_{key}"] = f"{r['dc']:.3e}"
+        fields[f"norm_over_range_part_{key}"] = f"{r['ratio']:.1f}"
+        fields[f"range_part_vs_float64_{key}"] = f"{r['err']:.3e}"
+        fields[f"bar_{key}"] = f"{r['bar']:.3e}"
+    log("cartesian_small", t0, shape="128^2", iters=out["cuda"][2],
+        rel_err_images_gpu_vs_cpu=f"{err_raw:.3e}",
+        rel_err_range_parts_gpu_vs_cpu=f"{err_range:.3e}",
+        lamda_compared=f"{lam:.4g}", rel_err_gpu_vs_cpu=f"{err:.3e}",
+        **fields)
+
+
+def phase_cartesian(maps, x_true):
+    """Phase 7: Cartesian CG-SENSE through the tree optimizer at 256^3 / 8
+    coils. No hand-written kernel is on this path."""
+    import torch
+    from indigo_tpu_torch import cg, max_eigen, transforms
+    from indigo_tpu_torch.models import cartesian_sense_op
+    from indigo_tpu_torch.utils import rel_err
+
+    cartesian_small_check()
+    t0 = time.time()
+    m2 = np.zeros((N, N), bool)
+    m2[::2, ::2] = True
+    c = N // 2
+    m2[c - 16:c + 16, c - 16:c + 16] = True
+    mask = np.broadcast_to(m2, (N, N, N))
+    kept = NC * int(mask.sum())
+    if kept > transforms.MAX_KRON_NNZ:
+        raise AssertionError(f"{kept} kept samples over {NC} coils exceed "
+                             f"the fusion's cap {transforms.MAX_KRON_NNZ}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    A = cartesian_sense_op(mask, maps)      # on the card by default
+    assert_on_card(A)
+    y = add_noise(A * np.ascontiguousarray(x_true.ravel())[:, None],
+                  SEED + 6)
+    torch.cuda.synchronize()
+    log("cartesian_init", t0, shape=f"{N}^3", nc=NC,
+        sampled_fraction=f"{mask.mean():.4f}", kept_samples=kept,
+        cap=transforms.MAX_KRON_NNZ)
+
+    t0 = time.time()
+    host_before = host_peak_gb()
+    AHA = A.H * A
+    Nop = AHA.optimize()
+    torch.cuda.synchronize()
+    t_opt = time.time() - t0
+    kinds = leaf_kinds(Nop)
+    if "Mask" in kinds or any(b.device != A.device for b in Nop.buffers()):
+        raise AssertionError(f"optimize left {kinds} (or moved a buffer "
+                             f"off {A.device})")
+    log("cartesian_optimize", t0, leaves=",".join(kinds),
+        host_peak_gb_before=f"{host_before:.2f}",
+        host_peak_gb_after=f"{host_peak_gb():.2f}",
+        tree_mb=f"{Nop.memusage() / 1e6:.0f}")
+    print(Nop.dump(), flush=True)
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 7)
+    v = torch.from_numpy(rng.standard_normal(
+        (A.shape[1], 1), dtype=np.float32).astype(np.complex64)).to("cuda")
+    err_apply = rel_err(Nop * v, AHA * v)
+    if not err_apply <= 1e-5:
+        raise AssertionError(f"optimized N vs A.H * A: rel_err "
+                             f"{err_apply:.3e}")
+    rhs = A.H * y
+    lam = 1e-3 * float(max_eigen(Nop, A.shape[1], iters=10))
+    torch.cuda.synchronize()
+    log("cartesian_apply", t0, rel_err_optimized_vs_tree=f"{err_apply:.3e}",
+        lamda=f"{lam:.4g}")
+
+    def solve(op):
+        return cg(op, rhs, lamda=lam, tol=0.0, maxiter=CART_ITERS,
+                  history=True)
+
+    times = []
+    for i in range(2):
+        t0 = time.time()
+        x, info = solve(Nop)
+        res = info["resids"].cpu().numpy()
+        times.append(time.time() - t0)
+        if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+            raise AssertionError(f"cartesian solve {i}: residuals {res}")
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"cartesian solve {i}: image not finite")
+    t0 = time.time()
+    solve(AHA)
+    torch.cuda.synchronize()
+    t_tree = time.time() - t0
+    err_img = rel_err(x.cpu().numpy().reshape(x_true.shape), x_true)
+    assert_no_kernel_launch("cartesian")
+    print(f"[cartesian_summary] optimize_s={t_opt:.3f} "
+          f"first_s={times[0]:.3f} warm_s={times[1]:.3f} "
+          f"s_per_iter={times[1] / CART_ITERS:.4f} "
+          f"unoptimized_warm_s={t_tree:.3f} lamda={lam:.4g} "
+          f"resid_first={res[0]:.4e} resid_last={res[-1]:.4e} "
+          f"rel_err_vs_phantom={err_img:.4f} "
+          f"bytes_floor_ms_per_apply="
+          f"{Nop.cost(1)[1] / HBM_BYTES_PER_S * 1e3:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+    print(f"[cartesian_parts] N_apply_ms={timed(lambda: Nop * v, 5):.3f} "
+          f"tree_apply_ms={timed(lambda: AHA * v, 5):.3f} "
+          f"A_ms={timed(lambda: A * v, 5):.3f} "
+          f"A.H_ms={timed(lambda: A.H * y, 5):.3f}", flush=True)
+    profile_solve("cartesian", lambda: solve(Nop))
+
+
+def assert_on_card(*ops):
+    """These operators were built with no device argument: they must be
+    on the GPU."""
+    for op in ops:
+        if not all(b.is_cuda for b in op.buffers()):
+            raise AssertionError(f"{op.name} was not built on the GPU")
+
+
+def assert_no_kernel_launch(path):
+    """The Cartesian and FISTA paths are torch code: no K1-K4 launch and no
+    plain version of one on the GPU."""
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.dft_cuda import (
+        sense_normal_cuda, sense_normal_reference, toeplitz_apply_cuda,
+        toeplitz_apply_reference)
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    n = (sense_normal_cuda.launches + toeplitz_apply_cuda.launches
+         + jag_spmm_cuda.launches + ell_spmm_cuda.launches
+         + sense_normal_reference.cuda_calls
+         + toeplitz_apply_reference.cuda_calls + spmm.plain_cuda_calls)
+    if n:
+        raise AssertionError(f"{path} path: {n} kernel or plain-kernel "
+                             "calls, expected none")
+
+
+def vardens_rows(n, accel, center, rng):
+    """The example's 1-D variable-density row mask (vardens_mask)."""
+    p = 1.0 / (1.0 + 40.0 * np.abs(np.linspace(-0.5, 0.5, n)))
+    p = p / p.mean() / accel
+    rows = rng.random(n) < p
+    rows[int(n * (0.5 - center / 2)):int(n * (0.5 + center / 2))] = True
+    return rows
+
+
+def fista_recipe(A, W, y, lam, L, iters, objective=True):
+    """The example's FISTA in the wavelet domain (u = W x): returns
+    (u, info)."""
+    import torch
+    from indigo_tpu_torch import apgd, soft_thresh
+
+    def gradf(u):
+        r = A.apply(W.apply(u, adjoint=True)) - y
+        return W.apply(A.apply(r, adjoint=True))
+
+    def obj(u):
+        r = A.apply(W.apply(u, adjoint=True)) - y
+        return (0.5 * torch.linalg.vector_norm(r) ** 2
+                + lam * u.abs().sum())
+
+    u0 = torch.zeros((A.shape[1], 1), dtype=torch.complex64, device=y.device)
+    return apgd(gradf, lambda v, a: soft_thresh(v, lam * a), 1.0 / L, u0,
+                maxiter=iters, history=objective,
+                objective=obj if objective else None)
+
+
+def zero_filled_error(A, y, nc, x_true):
+    """The example's zero-filled yardstick: A^H y / nc scaled to the
+    phantom's peak, and its distance from the phantom."""
+    from indigo_tpu_torch.utils import rel_err
+    x_zf = (A.H * y)[:, 0].cpu().numpy() / nc
+    return rel_err(x_zf / max(abs(x_zf).max(), 1e-9) * abs(x_true).max(),
+                   x_true)
+
+
+def fista_small_check():
+    """The config-4 example's defaults (128^2, 4 coils, lam 2e-3, 100
+    iterations) on the GPU and on the CPU."""
+    import torch
+    import indigo_tpu_torch as it
+    from indigo_tpu_torch.models import cartesian_sense_op
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    t0 = time.time()
+    n, nc, lam, iters = 128, 4, 2e-3, 100
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    maps = np.asarray([
+        (0.5 + np.exp(-(((xx - a) ** 2 + (yy - b) ** 2) * 3)))
+        * np.exp(1j * 2 * np.pi * (a * xx + b * yy))
+        for a, b in [(0.3, 0.3), (0.3, 0.7), (0.7, 0.3), (0.7, 0.7)][:nc]],
+        dtype=np.complex64)
+    mask = np.zeros((n, n), bool)
+    mask[vardens_rows(n, 3, 0.08, rng)] = True
+    img = ellipse_phantom((n, n))
+    img[((xx - 0.35) / 0.05) ** 2 + ((yy - 0.6) / 0.09) ** 2 <= 1] += 0.5
+    x_true = img.ravel()
+    A = cartesian_sense_op(mask, maps, device="cpu")
+    y = A * x_true[:, None]
+    y = y + 0.01 * float(y.abs().mean()) * torch.from_numpy(
+        rand64c(*y.shape, rng=rng))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        Ad = cartesian_sense_op(mask, maps, device=dev)
+        Wd = it.DWT((n, n), wavelet="db4", levels=3, device=dev)
+        yd = y.to(dev)
+        L = float(it.max_eigen(Ad.H * Ad, n * n, iters=30)) * 1.05
+        u, _ = fista_recipe(Ad, Wd, yd, lam, L, iters, objective=False)
+        out[dev] = ((Wd.H * u)[:, 0].cpu().numpy(), L)
+    err = rel_err(out["cuda"][0], out["cpu"][0])
+    err_cs = rel_err(out["cuda"][0], x_true)
+    err_zf = zero_filled_error(A, y, nc, x_true)
+    if not err <= PATH_TOL:
+        raise AssertionError(f"128^2 FISTA example GPU vs CPU {err:.3e}")
+    if not (err_cs < err_zf and err_cs < 0.25):     # the example's asserts
+        raise AssertionError(f"128^2 FISTA example: CS {err_cs:.3f} vs "
+                             f"zero-filled {err_zf:.3f}")
+    log("fista_small", t0, shape="128^2", nc=nc, iters=iters,
+        L_gpu=f"{out['cuda'][1]:.1f}", L_cpu=f"{out['cpu'][1]:.1f}",
+        rel_err_gpu_vs_cpu=f"{err:.3e}", rel_err_cs=f"{err_cs:.3f}",
+        rel_err_zero_filled=f"{err_zf:.3f}")
+
+
+def phase_fista(maps, x_true):
+    """Phase 8: l1-wavelet FISTA at 256^3 / 8 coils. No hand-written kernel
+    is on this path."""
+    import torch
+    import indigo_tpu_torch as it
+    from indigo_tpu_torch.models import cartesian_sense_op
+    from indigo_tpu_torch.utils import rel_err
+
+    fista_small_check()
+    t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    p1 = 1.0 / (1.0 + 40.0 * np.abs(np.linspace(-0.5, 0.5, N)))
+    p2 = np.multiply.outer(p1, p1)
+    p2 = np.minimum(p2 / p2.mean() / 6.0, 1.0)
+    m2 = rng.random((N, N)) < p2
+    c = N // 2
+    m2[c - 12:c + 12, c - 12:c + 12] = True
+    mask = np.broadcast_to(m2, (N, N, N))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    A = cartesian_sense_op(mask, maps)      # both on the card by default
+    W = it.DWT((N, N, N), wavelet="db4", levels=3)
+    assert_on_card(A, W)
+    y = A * np.ascontiguousarray(x_true.ravel())[:, None]
+    noise = rng.standard_normal((2,) + tuple(y.shape), dtype=np.float32)
+    y = y + 0.01 * float(y.abs().mean()) * torch.from_numpy(
+        noise[0] + 1j * noise[1]).to("cuda")
+    del noise
+    torch.cuda.synchronize()
+    log("fista_init", t0, shape=f"{N}^3", nc=NC,
+        sampled_fraction=f"{mask.mean():.4f}",
+        undersampling=f"{1 / mask.mean():.2f}",
+        samples_per_coil=int(mask.sum()), wavelet="db4", levels=W.levels)
+
+    t0 = time.time()
+    n = A.shape[1]
+    L = 1.05 * float(it.max_eigen(A.H * A, n, iters=EIGEN_ITERS))
+    t_eigen = time.time() - t0
+    lam = FISTA_LAM_FRACTION * float((W * (A.H * y)).abs().max())
+    log("fista_step", t0, L=f"{L:.6g}", lam=f"{lam:.6g}",
+        threshold_per_step=f"{lam / L:.4g}", eigen_iters=EIGEN_ITERS)
+
+    times = []
+    for i in range(2):
+        t0 = time.time()
+        u, info = fista_recipe(A, W, y, lam, L, FISTA_ITERS)
+        objs = info["objs"].cpu().numpy()
+        deltas = info["deltas"].cpu().numpy()
+        times.append(time.time() - t0)
+        if not (np.all(np.isfinite(objs)) and np.all(np.isfinite(deltas))
+                and bool(torch.isfinite(u).all())):
+            raise AssertionError(f"FISTA run {i}: not finite")
+        # FISTA is not a descent method step by step (the momentum may
+        # overshoot), so the largest single rise is printed and held small,
+        # and the objective must fall over the run and over its second half
+        rise = float(np.max(np.diff(objs) / objs[:-1]))
+        half = objs[len(objs) // 2]
+        slack = 1 + 1e-5        # f32 sums of ~1e8 terms, once converged
+        if not (objs[-1] <= half * slack and half <= objs[0]
+                and rise <= 1e-3):
+            raise AssertionError(
+                f"FISTA run {i}: objective {objs[0]:.6g} -> {half:.6g} -> "
+                f"{objs[-1]:.6g}, largest relative rise {rise:.3e}")
+        if int(info["iters"]) != FISTA_ITERS:
+            raise AssertionError(f"FISTA run {i}: {int(info['iters'])} "
+                                 "iterations")
+    t0 = time.time()
+    fista_recipe(A, W, y, lam, L, FISTA_ITERS, objective=False)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    x_cs = (W.H * u)[:, 0].cpu().numpy()
+    err_cs = rel_err(x_cs, x_true.ravel())
+    err_zf = zero_filled_error(A, y, NC, x_true.ravel())
+    if not (np.all(np.isfinite(x_cs)) and err_cs < err_zf):
+        raise AssertionError(f"FISTA image {err_cs:.4f} from the phantom, "
+                             f"zero-filled {err_zf:.4f}")
+    assert_no_kernel_launch("FISTA")
+    # bytes floor of one iteration: W.H, A, A.H, W once each (the recorded
+    # runs also evaluate the objective: W.H and A once more)
+    grad_bytes = 2 * (A.cost(1)[1] + W.cost(1)[1])
+    floor = grad_bytes / HBM_BYTES_PER_S * 1e3
+    floor_obj = 1.5 * floor
+    sparsity = float((u != 0).float().mean())
+    print(f"[fista_summary] L={L:.6g} lam={lam:.6g} eigen_s={t_eigen:.3f} "
+          f"first_s={times[0]:.3f} warm_s={times[1]:.3f} "
+          f"s_per_iter={times[1] / FISTA_ITERS:.4f} "
+          f"bytes_floor_ms_per_iter={floor_obj:.3f} "
+          f"no_objective_warm_s={t_plain:.3f} "
+          f"no_objective_s_per_iter={t_plain / FISTA_ITERS:.4f} "
+          f"no_objective_bytes_floor_ms_per_iter={floor:.3f} "
+          f"obj_first={objs[0]:.6g} obj_mid={half:.6g} "
+          f"obj_last={objs[-1]:.6g} obj_largest_rise={rise:.3e} "
+          f"delta_last={deltas[-1]:.4g} nonzero_coefficients={sparsity:.4f} "
+          f"rel_err_cs={err_cs:.4f} rel_err_zero_filled={err_zf:.4f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+    # the iteration's parts, one by one, each beside its cost() bytes floor
+    from indigo_tpu_torch import soft_thresh
+    parts = (("W", W, False, u), ("W.H", W, True, u),
+             ("A", A, False, u), ("A.H", A, True, y))
+    fields = []
+    for key, op, adj, v in parts:
+        ms = timed(lambda: op.apply(v, adjoint=adj), 5)
+        fields.append(f"{key}_ms={ms:.3f} {key}_bytes_floor_ms="
+                      f"{op.cost(1)[1] / HBM_BYTES_PER_S * 1e3:.3f}")
+    ms = timed(lambda: soft_thresh(u, lam / L), 5)
+    fields.append(f"soft_thresh_ms={ms:.3f} soft_thresh_bytes_floor_ms="
+                  f"{2 * u.numel() * 8 / HBM_BYTES_PER_S * 1e3:.3f}")
+    print("[fista_parts] " + " ".join(fields), flush=True)
+    profile_solve("fista", lambda: fista_recipe(A, W, y, lam, L, FISTA_ITERS,
+                                                objective=False))
+
 
 def main():
     phase_device()
@@ -1207,7 +1747,14 @@ def main():
     k2_worst, k2_timing = phase_toeplitz_kernels()
     tree, k2_launches = phase_tree_path()
     phase_tree_cross_checks(tree)
+    maps = tree["maps"]
     del tree
+    torch.cuda.empty_cache()
+    x_true = phantom(N)
+    phase_cartesian(maps, x_true)
+    torch.cuda.empty_cache()
+    phase_fista(maps, x_true)
+    torch.cuda.empty_cache()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

@@ -9,8 +9,9 @@ and scipy only (never jax, never indigo_tpu).
 The slices ported so far:
 
 * the 3D CG-SENSE serving path: ``models.SenseRecon`` ->
-  ``models.sense.sense_nufft_op`` (tile gridding + ``GridDFT``) ->
-  ``toeplitz.toeplitz_kernel`` -> ``parallel.recon`` (``batched_cg`` on
+  ``models.sense.sense_nufft_op`` (tile gridding + ``GridDFT``, or
+  ``KBInterp * CenteredDFT`` on grids the periodic tiling does not cover)
+  -> ``toeplitz.toeplitz_kernel`` -> ``parallel.recon`` (``batched_cg`` on
   ``sense_normal_batched``), whose normal operator runs the hand-written
   CUDA kernel in ``csrc/sense_normal.cu`` on the GPU;
 * the sparse-gridding path: ``sense_nufft_op(..., interp="sparse")``
@@ -21,14 +22,40 @@ The slices ported so far:
   ``toeplitz.ToeplitzNormal`` and ``sense_normal_toeplitz`` solved with
   ``cg``, with ``noncart.pipe_menon_dcf`` weights; its 3D apply runs the
   hand-written CUDA kernel K2 (``csrc/sense_normal.cu``, K1's family with
-  the coil fusion turned off).
+  the coil fusion turned off);
+* the Cartesian path with the tree optimizer:
+  ``models.cartesian_sense_op`` (``Mask`` . ``centered_fft_op``),
+  ``transforms.optimize`` / ``Operator.optimize()`` (the host spGEMM pass
+  that fuses ``Mask.H * Mask`` into one ``Diag``) and ``cg``;
+* l1-wavelet compressed sensing: ``wavelet.DWT`` with ``solvers.apgd``
+  (FISTA), ``max_eigen`` and ``soft_thresh``.
+  These two paths are torch code throughout (``torch.fft``, gathers, small
+  matrix products), as the reference runs them without a hand-written
+  kernel.
+
+The whole operator algebra of the reference is here (``operators``); its
+float64 numpy spec is ``oracle``.
 """
-from . import noncart, toeplitz, utils
-from .operators import CenteredDFT, Perm, Scale, SpMatrix
-from .solvers import cg
+from . import (operators, transforms, solvers, sparse, utils, noncart,
+               oracle, models, wavelet, toeplitz, parallel)
+from .operators import (
+    Operator, SpMatrix, KBInterp, DenseMatrix, Diag, UnscaledFFT,
+    CenteredDFT, GridDFT, Eye, One, Mask,
+    CropPad, Perm, Product, Adjoint, KronI, BlockDiag, VStack, HStack, Scale,
+)
+from .solvers import cg, apgd, fista, max_eigen, soft_thresh
+from .wavelet import DWT
+from .sparse import BlockedELL, csr_to_bell, bell_spmm
 from .toeplitz import ToeplitzNormal, sense_normal_toeplitz
 from .utils import rand64c, rel_err
 
-__all__ = ["utils", "noncart", "toeplitz", "rand64c", "rel_err",
-           "SpMatrix", "Perm", "CenteredDFT", "Scale", "ToeplitzNormal",
-           "sense_normal_toeplitz", "cg"]
+__all__ = [
+    "operators", "transforms", "solvers", "sparse", "utils", "noncart",
+    "oracle", "models", "wavelet", "toeplitz", "parallel",
+    "Operator", "SpMatrix", "KBInterp", "DenseMatrix", "Diag", "UnscaledFFT",
+    "CenteredDFT", "GridDFT", "Eye", "One", "Mask", "CropPad", "Perm",
+    "Product", "Adjoint", "KronI", "BlockDiag", "VStack", "HStack", "Scale",
+    "cg", "apgd", "fista", "max_eigen", "soft_thresh", "DWT",
+    "BlockedELL", "csr_to_bell", "bell_spmm",
+    "ToeplitzNormal", "sense_normal_toeplitz", "rand64c", "rel_err",
+]

@@ -12,15 +12,18 @@ state: the port's counterpart of loading checkpoint weights.
 (``BlockedJag``, ``BlockedELL``, ``ElementELL``) across, and
 ``spmatrix_from_reference`` a reference ``SpMatrix`` leaf, so that both
 packages apply the same tiles; ``toeplitz_from_reference`` does the same for
-a ``ToeplitzNormal`` leaf and its spectrum. This module reads the reference
-objects' arrays through numpy only and imports nothing of the reference.
+a ``ToeplitzNormal`` leaf and its spectrum, and ``operator_from_reference``
+for a whole operator tree (every operator class of the port, ``DWT``
+included), walked by class name. This module reads the reference objects'
+arrays through numpy only and imports nothing of the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["state_from_reference_arrays", "sparse_from_reference",
-           "spmatrix_from_reference", "toeplitz_from_reference"]
+           "spmatrix_from_reference", "toeplitz_from_reference",
+           "operator_from_reference"]
 
 
 def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
@@ -128,3 +131,72 @@ def toeplitz_from_reference(op):
     if op._method in ("pallas", "dft"):
         T = T[np.ix_(*(np.argsort(block_perm(s)) for s in T.shape))]
     return ToeplitzNormal(T, op._vol, name=op._name, method=op._method)
+
+
+def _plan_from_reference(p):
+    from .ops.tile_interp import TileInterpPlan
+
+    return TileInterpPlan(
+        np.asarray(p.tid), [np.asarray(w) for w in p.wfac], p.grid_shape,
+        p.tile, p.ext, p.nt, p.pad_lo, p.width,
+        sample_perm=getattr(p, "sample_perm", None))
+
+
+def operator_from_reference(op):
+    """The port's operator tree with the structure and arrays of the
+    reference tree ``op`` (on the host; ``.to(device)`` moves it).
+
+    The tree is walked by class name, so nothing of the reference is
+    imported: every combinator is rebuilt around its converted children and
+    every leaf from the reference leaf's own arrays (split-complex payloads
+    become complex64), so both packages apply the same numbers.
+    """
+    from . import operators as O
+    from .wavelet import DWT
+
+    kind = type(op).__name__
+    name = getattr(op, "_name", None)
+    conv = operator_from_reference
+    dt = lambda: np.dtype(str(op.dtype))  # noqa: E731
+    if kind == "Product":
+        return O.Product(conv(op.left), conv(op.right), name=name)
+    if kind == "Adjoint":
+        return O.Adjoint(conv(op.child), name=name)
+    if kind == "KronI":
+        return O.KronI(op.c, conv(op.child), name=name)
+    if kind in ("BlockDiag", "VStack", "HStack"):
+        return getattr(O, kind)([conv(b) for b in op.blocks], name=name)
+    if kind == "Scale":
+        return O.Scale(_host(op.alpha).item(), conv(op.child), name=name)
+    if kind == "SpMatrix":
+        return spmatrix_from_reference(op)
+    if kind == "ToeplitzNormal":
+        return toeplitz_from_reference(op)
+    if kind == "KBInterp":
+        return O.KBInterp(_plan_from_reference(op.plan), name=name)
+    if kind == "GridDFT":
+        return O.GridDFT(_plan_from_reference(op.plan), op.img_shape,
+                         name=name)
+    if kind == "CenteredDFT":
+        return O.CenteredDFT(op.img_shape, op.grid_shape, name=name)
+    if kind == "DenseMatrix":
+        return O.DenseMatrix(np.array(_host(op._A)), name=name)
+    if kind == "Diag":
+        return O.Diag(np.array(_host(op.payload)), name=name)
+    if kind == "UnscaledFFT":
+        return O.UnscaledFFT(op.vol_shape, dtype=dt(), name=name)
+    if kind == "Eye":
+        return O.Eye(op.shape[0], dtype=dt(), name=name)
+    if kind == "One":
+        return O.One(op.shape, dtype=dt(), name=name)
+    if kind == "CropPad":
+        return O.CropPad(op.in_shape, op.out_shape, dtype=dt(), name=name)
+    if kind == "Perm":
+        return O.Perm(np.asarray(op.perm), dtype=dt(), name=name)
+    if kind == "Mask":
+        return O.Mask(np.asarray(op.keep), op.shape[1], dtype=dt(),
+                      name=name)
+    if kind == "DWT":
+        return DWT(op.vol_shape, wavelet=op._wavelet, levels=op._levels,
+                   dtype=dt(), name=name, device="cpu")
+    raise TypeError(f"not a reference operator the port knows: {kind}")

@@ -1,5 +1,7 @@
 """Forward models and the serving pipeline."""
-from .sense import nufft_op, sense_nufft_op, NufftPlan
+from .sense import (centered_fft_op, nufft_op, sense_nufft_op,
+                    cartesian_sense_op, NufftPlan)
 from .recon import SenseRecon
 
-__all__ = ["nufft_op", "sense_nufft_op", "NufftPlan", "SenseRecon"]
+__all__ = ["centered_fft_op", "nufft_op", "sense_nufft_op",
+           "cartesian_sense_op", "NufftPlan", "SenseRecon"]

@@ -79,7 +79,8 @@ class SenseRecon(nn.Module):
         else:
             w = np.asarray(dcf, np.float32).ravel()
 
-        A, plan = sense_nufft_op(traj, maps, oversamp=oversamp, width=width)
+        A, plan = sense_nufft_op(traj, maps, oversamp=oversamp, width=width,
+                                 device=device)
         w_sorted = np.tile(w[plan.perm], maps.shape[0]).astype(np.float32)
         Tf, self.kernel_info = toeplitz_kernel(
             traj, img_shape, oversamp=oversamp, width=width, weights=w,
@@ -109,9 +110,9 @@ class SenseRecon(nn.Module):
         ``convert.state_from_reference_arrays``) without recomputing any
         geometry — the port's way of loading the reference pipeline's
         weights."""
-        from ..operators import Diag, GridDFT, KronI, VStack
+        from ..operators import Diag, KronI, VStack
         from ..ops.tile_interp import TileInterpPlan
-        from .sense import NufftPlan
+        from .sense import NufftPlan, gridding_core
 
         maps = np.asarray(state["maps"], np.complex64)
         nc, img_shape = maps.shape[0], tuple(maps.shape[1:])
@@ -122,7 +123,7 @@ class SenseRecon(nn.Module):
         coils = VStack(
             [Diag((deapod * maps[c]).ravel().astype(np.complex64),
                   name=f"Map{c}") for c in range(nc)], name="Coils")
-        A = KronI(nc, GridDFT(tplan, img_shape, name="GridDFT"),
+        A = KronI(nc, gridding_core(tplan, img_shape),
                   name="PerCoil") * coils
         plan = NufftPlan(img_shape, tplan.grid_shape, None, tplan.width,
                          None, np.asarray(state["perm"], np.int64), None,

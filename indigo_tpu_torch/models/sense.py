@@ -1,12 +1,11 @@
 """SENSE / NUFFT forward models (torch operator trees).
 
-Counterpart of ``indigo_tpu/models/sense.py``: ``NufftPlan``, ``nufft_op``
-and ``sense_nufft_op`` on two branches: tile gridding with the fused
-matmul-DFT (``interp="tile"``, ``fft="mm"``, periodic tiling -> one
-``GridDFT`` leaf), and sparse gridding (``interp="sparse"``, ``fft="mm"``:
-``SpMatrix`` [. ``Perm``] . ``CenteredDFT``). The XLA-FFT chain
-(``fft="xla"``) and tile gridding on grids that do not tile periodically
-are still to be ported and raise.
+Counterpart of ``indigo_tpu/models/sense.py``: ``centered_fft_op``,
+``NufftPlan``, ``nufft_op``, ``sense_nufft_op`` and ``cartesian_sense_op``.
+Each function returns its tree on ``device`` (default ``"cuda"``, as
+``SenseRecon``): the geometry is planned on the host, the arrays then move
+to the card, and the solvers run where the tree lives. ``device="cpu"``
+keeps everything on the host.
 
 Layout conventions (column-batched, like the reference):
   * image vectors are flattened C-order, shape (prod(img_shape), K)
@@ -18,12 +17,35 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..operators import (CenteredDFT, Diag, GridDFT, KronI, Perm, SpMatrix,
-                         VStack)
-from ..noncart import (DEFAULT_TILES, beatty_beta, deapodization, interp_mat,
-                       sort_trajectory, tiled_order)
+from ..operators import (CenteredDFT, CropPad, Diag, GridDFT, KBInterp,
+                         KronI, Mask, Perm, SpMatrix, UnscaledFFT, VStack)
+from ..noncart import (DEFAULT_TILES, beatty_beta, checkerboard,
+                       deapodization, interp_mat, sort_trajectory,
+                       tiled_order)
 
-__all__ = ["nufft_op", "sense_nufft_op", "NufftPlan"]
+__all__ = ["centered_fft_op", "nufft_op", "sense_nufft_op",
+           "cartesian_sense_op", "NufftPlan"]
+
+
+def centered_fft_op(shape, dtype=np.complex64, device="cuda"):
+    """Centered FFT  fftshift . fft . ifftshift  as D_out * F * D_in.
+
+    The shift diagonals are exact (+-1) float32 checkerboards for even
+    dims.
+    """
+    din = Diag(checkerboard(shape), name="fftshift_in")
+    dout = Diag(checkerboard(shape, shifted=True), name="fftshift_out")
+    return (dout * UnscaledFFT(shape, dtype=dtype) * din).to(device)
+
+
+def gridding_core(tplan, img_shape):
+    """G Fc Z for a tile plan with the matmul DFT: one ``GridDFT`` leaf on
+    a periodic no-halo tiling, else ``KBInterp * CenteredDFT``."""
+    grid = tuple(int(g) for g in tplan.grid_shape)
+    if tuple(tplan.ext) == grid:
+        return GridDFT(tplan, img_shape, name="GridDFT")
+    return (KBInterp(tplan, name="Gridding")
+            * CenteredDFT(img_shape, grid, name="PadDFT"))
 
 
 @dataclass
@@ -64,21 +86,27 @@ class NufftPlan:
 
 def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
              col_tiling=None, deapod=True, interp="auto", fft="auto",
-             name="NUFFT"):
-    """Type-2 NUFFT operator A: image -> k-space samples. Returns (A, plan).
+             name="NUFFT", device="cuda"):
+    """Type-2 NUFFT operator A: image -> k-space samples. Returns (A, plan)
+    with A on ``device``.
 
-    A = G [. P] . Fc . Z [. Da], as in the reference:
-      * ``interp="tile"`` with ``fft="mm"`` on a periodic tiling: G, Fc and
-        Z fuse into one ``GridDFT`` leaf;
-      * ``interp="sparse"`` with ``fft="mm"``: G is the KB interpolation
-        ``SpMatrix`` (kernel K3/K4 on CUDA) and Fc . Z one ``CenteredDFT``.
-        With ``col_tiling`` (default on unless ``interp="tile"``, as in the
-        reference), the samples are sorted by Morton tile, the grid columns
-        are re-tiled into Morton order (``noncart.tiled_order``), folded
-        into the CSR indices, and P is the ``Perm`` leaf that applies that
-        order.
-    'auto' resolves as the reference does: interp 'tile' for 2D/3D and
-    'sparse' for 1D; fft 'mm' when every grid dim is even and <= 512.
+    A = G [. P] . Fc . Z [. Da], as in the reference. ``interp`` selects G:
+      * 'tile': the KB gather/scatter on the natural-order grid
+        (``KBInterp``);
+      * 'sparse': the KB interpolation ``SpMatrix`` (kernel K3/K4 on
+        CUDA). With ``col_tiling`` (default on unless ``interp="tile"``),
+        the samples are sorted by Morton tile, the grid columns are
+        re-tiled into Morton order (``noncart.tiled_order``), folded into
+        the CSR indices, and P is the ``Perm`` leaf that applies that order;
+      * 'auto': 'tile' for 2D/3D, 'sparse' for 1D.
+    ``fft`` selects Fc . Z:
+      * 'mm': one ``CenteredDFT`` leaf (per-axis matrix products); with
+        ``interp="tile"`` on a periodic no-halo tiling G, Fc and Z fuse
+        into one ``GridDFT`` leaf;
+      * 'xla': the explicit chain ``centered_fft_op(grid) * CropPad`` over
+        the library FFT (the reference's name, kept for call
+        compatibility; here it means ``torch.fft``);
+      * 'auto': 'mm' when every grid dim is even and <= 512, else 'xla'.
     """
     traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
     img_shape = tuple(int(n) for n in img_shape)
@@ -96,11 +124,9 @@ def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
     if fft == "auto":
         fft = ("mm" if all(g % 2 == 0 and g <= 512 for g in grid_shape)
                else "xla")
-    if fft != "mm" or interp not in ("tile", "sparse"):
-        raise NotImplementedError(
-            f"nufft_op(interp={interp!r}, fft={fft!r}) is not ported yet: "
-            "only fft='mm' with interp='tile' or 'sparse' (ROADMAP Queue 1, "
-            "items 6 and 10)")
+    if fft not in ("mm", "xla") or interp not in ("tile", "sparse"):
+        raise ValueError(f"nufft_op: unknown interp={interp!r} or "
+                         f"fft={fft!r}")
 
     perm = (sort_trajectory(traj, grid_shape, tile=tile) if sort
             else np.arange(len(traj)))
@@ -114,7 +140,7 @@ def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
         if tplan.sample_perm is not None:
             perm = perm[tplan.sample_perm]
             traj_s = traj_s[tplan.sample_perm]
-        A = GridDFT(tplan, img_shape, name="GridDFT")
+        G = None if fft == "mm" else KBInterp(tplan, name="Gridding")
     else:
         Gcsr = interp_mat(traj_s, grid_shape, width=width, beta=beta)
         if tile is not None:
@@ -125,22 +151,32 @@ def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
             Gcsr.indices = inv[Gcsr.indices].astype(Gcsr.indices.dtype)
             Gcsr.has_sorted_indices = False
             chain.append(Perm(cperm, name="GridTiling"))
-        A = SpMatrix(Gcsr, name="Gridding")
-        chain.append(CenteredDFT(img_shape, grid_shape, name="PadDFT"))
+        G = SpMatrix(Gcsr, name="Gridding")
+    if G is None:
+        A, factors = gridding_core(tplan, img_shape), []
+    elif fft == "mm":
+        A = G
+        factors = chain + [CenteredDFT(img_shape, grid_shape, name="PadDFT")]
+    else:
+        A = G
+        factors = chain + [centered_fft_op(grid_shape, device="cpu"),
+                           CropPad(img_shape, grid_shape, name="Zpad")]
     da = deapodization(img_shape, grid_shape, width=width, beta=beta)
     if deapod:
-        chain.append(Diag(da, name="Deapod"))
-    for op in chain:
+        factors.append(Diag(da, name="Deapod"))
+    for op in factors:
         A = A * op
     A._name = name
+    A = A.to(device)
     plan = NufftPlan(img_shape, grid_shape, traj_s, width, float(beta),
                      perm, float(oversamp), deapod=da)
     return A, plan
 
 
 def sense_nufft_op(traj, maps, oversamp=1.5, width=4, beta=None, sort=True,
-                   fft="auto", interp="auto", col_tiling=None):
-    """Multi-coil SENSE NUFFT operator: (ncoil*M, prod(img)).
+                   fft="auto", interp="auto", col_tiling=None,
+                   device="cuda"):
+    """Multi-coil SENSE NUFFT operator: (ncoil*M, prod(img)), on ``device``.
 
     A = KronI(nc, G Fc Z) . VStack([Diag(Da * map_c)]) — the deapodization
     folded into the per-coil diagonals, as in the reference.
@@ -151,9 +187,29 @@ def sense_nufft_op(traj, maps, oversamp=1.5, width=4, beta=None, sort=True,
     img_shape = maps.shape[1:]
     core, plan = nufft_op(traj, img_shape, oversamp=oversamp, width=width,
                           beta=beta, sort=sort, deapod=False, fft=fft,
-                          interp=interp, col_tiling=col_tiling)
+                          interp=interp, col_tiling=col_tiling,
+                          device="cpu")
     coils = VStack(
         [Diag((plan.deapod * maps[c]).ravel().astype(np.complex64),
               name=f"Map{c}") for c in range(nc)], name="Coils")
     A = KronI(nc, core, name="PerCoil") * coils
-    return A, plan
+    return A.to(device), plan
+
+
+def cartesian_sense_op(mask, maps, device="cuda"):
+    """Cartesian multi-coil SENSE: A = KronI(nc, P Fc) . VStack(Diag maps),
+    on ``device``.
+
+    mask: boolean array over the image grid (sampled k-space locations, in
+    centered/fftshifted order); maps: (ncoil, *img_shape). P is the
+    ``Mask`` row-selection leaf (one gather per direction).
+    """
+    maps = np.asarray(maps)
+    nc = maps.shape[0]
+    img_shape = maps.shape[1:]
+    core = (Mask.from_bool(mask, name="Sampling")
+            * centered_fft_op(img_shape, device="cpu"))
+    coils = VStack(
+        [Diag(maps[c].ravel().astype(np.complex64), name=f"Map{c}")
+         for c in range(nc)], name="Coils")
+    return (KronI(nc, core, name="PerCoil") * coils).to(device)

@@ -6,7 +6,7 @@ These functions run once per pipeline on the host, so they stay numpy; the
 tests hold each one array-equal to indigo_tpu's so the copies cannot drift.
 ``pipe_menon_dcf`` can also run its fixed point on a torch device.
 ``interp_mat`` has only the numpy branch here (the native C++ gridding code is
-still to be ported).
+still to be ported; ``impl="native"`` raises).
 
 Conventions:
   * trajectories are (M, d) arrays in cycles/pixel, range [-0.5, 0.5).
@@ -22,7 +22,7 @@ import torch
 __all__ = [
     "kaiser_bessel", "beatty_beta", "interp_mat", "deapodization",
     "checkerboard", "sort_trajectory", "tiled_order", "DEFAULT_TILES",
-    "pipe_menon_dcf",
+    "pipe_menon_dcf", "zpad_mat",
 ]
 
 # Grid tiles of 128 nodes, shaped per rank so a KB patch touches few tiles;
@@ -99,12 +99,18 @@ def sort_trajectory(traj, grid_shape, tile=None):
     return np.argsort(key, kind="stable")
 
 
-def interp_mat(traj, grid_shape, width=4, beta=None, chunk=1 << 16):
+def interp_mat(traj, grid_shape, width=4, beta=None, chunk=1 << 16,
+               impl="auto"):
     """Gridding/interpolation CSR matrix (M, prod(grid_shape)), numpy build.
 
     Row i holds the KB weights interpolating the *centered* oversampled
     spectrum at grid coordinate traj[i]*G + G/2, with periodic wraparound.
+    ``impl`` is the reference's implementation switch: 'auto' and 'numpy'
+    take this numpy build; 'native' (its C++ code) is not ported and raises.
     """
+    if impl not in ("auto", "numpy"):
+        raise RuntimeError(f"interp_mat(impl={impl!r}): only the numpy "
+                           "build is ported")
     traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
     M, ndim = traj.shape
     G = tuple(int(g) for g in grid_shape)
@@ -161,6 +167,22 @@ def deapodization(img_shape, grid_shape, width=4, beta=None):
     return out.astype(np.float32)
 
 
+def zpad_mat(img_shape, grid_shape):
+    """Sparse 0/1 matrix (prod(grid), prod(img)) embedding the image centered
+    in the oversampled grid (the matrix form of ``operators.CropPad``)."""
+    img_shape = tuple(img_shape)
+    grid_shape = tuple(grid_shape)
+    offs = [(g - n) // 2 for n, g in zip(img_shape, grid_shape)]
+    idx = np.indices(img_shape).reshape(len(img_shape), -1)
+    lin = np.zeros(idx.shape[1], dtype=np.int64)
+    for d, g in enumerate(grid_shape):
+        lin = lin * g + (idx[d] + offs[d])
+    n = int(np.prod(img_shape))
+    return sp.csr_matrix(
+        (np.ones(n, np.float32), (lin, np.arange(n))),
+        shape=(int(np.prod(grid_shape)), n))
+
+
 def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
                    impl="auto", device=None):
     """Density-compensation weights by Pipe-Menon fixed point.
@@ -173,7 +195,7 @@ def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
       'host'   — the scipy-CSR fixed point (the executable spec, copied);
         minutes at 3D/1M-sample scale.
       'device' — the same fixed point through the KB gather and its
-        ``index_add_`` adjoint (``ops/tile_interp.tile_interp_apply``, one
+        ``index_add_`` adjoint (``ops/tile_interp.kb_gather``/``kb_scatter``, one
         column) on ``device`` (default the CPU).
       'auto'   — 'device' when ``device`` is a CUDA device and the grid is
         at least 64^3, else 'host' (the reference decides by platform).
@@ -187,8 +209,8 @@ def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
                             and np.prod(G_) >= 64 ** 3) else "host"
 
     if impl == "device":
-        from .ops.tile_interp import (kb_patches, plan_tile_interp,
-                                      tile_interp_apply)
+        from .ops.tile_interp import (kb_gather, kb_patches, kb_scatter,
+                                      plan_tile_interp)
 
         corner, wkb = kb_patches(plan_tile_interp(traj, G_, width=width,
                                                   beta=beta))
@@ -196,8 +218,8 @@ def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
         wkb = torch.from_numpy(wkb).to(device)
         w = torch.ones((M, 1), dtype=torch.float32, device=device)
         for _ in range(iters):
-            g = tile_interp_apply(corner, wkb, G_, w, adjoint=True)
-            d = tile_interp_apply(corner, wkb, G_, g)
+            g = kb_scatter(corner, wkb, G_, w)
+            d = kb_gather(corner, wkb, G_, g)
             w = w / torch.clamp(d.abs(), min=1e-12)
         return (w / w.max())[:, 0].cpu().numpy().astype(np.float32)
     if impl != "host":

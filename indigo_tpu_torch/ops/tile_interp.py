@@ -17,8 +17,10 @@ samples so the expanded (samples x width^d x K) scratch stays bounded.
 The sums run in another order than the reference's, so results agree to
 f32 rounding, not bitwise.
 
-Layouts: the grid is (K, *grid_shape) complex64 (K batch columns leading),
-samples are (M, K) complex64, both in plan sample order.
+Layouts of :func:`kb_gather` / :func:`kb_scatter`: the grid is
+(K, *grid_shape) complex64 (K batch columns leading), samples are (M, K)
+complex64 in plan sample order. :func:`tile_interp_apply` is the
+reference-shaped entry over them: ``(plan, x)`` with the grid as (N, K).
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ import torch
 from ..noncart import DEFAULT_TILES as DEFAULT_TILE
 from .dft_fft import full_f32_matmul
 
-__all__ = ["TileInterpPlan", "plan_tile_interp", "kb_patches",
-           "tile_interp_apply", "DEFAULT_TILE"]
+__all__ = ["TileInterpPlan", "plan_tile_interp", "kb_patches", "kb_gather",
+           "kb_scatter", "tile_interp_apply", "DEFAULT_TILE"]
 
 # expanded-scratch bound of one sample chunk, in float32 elements (256 MB)
 _SCRATCH_ELEMS = 1 << 26
@@ -207,39 +209,26 @@ def _patch_index_weights(corner, wkb, grid_shape):
     return idx.reshape(m, -1), W.reshape(m, -1)
 
 
-def tile_interp_apply(corner, wkb, grid_shape, x, adjoint=False,
-                      chunk=None):
-    """Apply the gridding interpolation G (or its adjoint G^H).
+def _chunk(chunk, P, K):
+    return max(1024, _SCRATCH_ELEMS // (P * 2 * K)) if chunk is None \
+        else int(chunk)
 
-    corner/wkb: tensors from :func:`kb_patches` on x's device.
-    Forward: x (K, *grid_shape) complex -> (M, K) samples.
-    Adjoint: x (M, K) complex samples -> (K, *grid_shape).
-    ``chunk`` (samples per step) bounds the expanded scratch; default keeps
-    it near 256 MB.
+
+def kb_gather(corner, wkb, grid_shape, x, chunk=None):
+    """G: grid x (K, *grid_shape) complex -> samples (M, K).
+
+    corner/wkb: tensors from :func:`kb_patches` on x's device. ``chunk``
+    (samples per step) bounds the expanded scratch; default keeps it near
+    256 MB.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     N = int(np.prod(grid_shape))
     M = corner.shape[0]
     P = wkb.shape[-1] ** len(grid_shape)
     x = x.to(torch.complex64)
-    if adjoint:
-        assert x.shape[0] == M, (x.shape, M)
-        K = x.shape[1]
-    else:
-        assert tuple(x.shape[1:]) == grid_shape, (x.shape, grid_shape)
-        K = x.shape[0]
-    if chunk is None:
-        chunk = max(1024, _SCRATCH_ELEMS // (P * 2 * K))
-    if adjoint:
-        out = torch.zeros((K, N, 2), dtype=torch.float32, device=x.device)
-        yr = torch.view_as_real(x)                         # (M, K, 2)
-        for lo in range(0, M, chunk):
-            hi = min(M, lo + chunk)
-            idx, W = _patch_index_weights(corner[lo:hi], wkb[lo:hi],
-                                          grid_shape)
-            src = W[None, :, :, None] * yr[lo:hi].transpose(0, 1)[:, :, None]
-            out.index_add_(1, idx.reshape(-1), src.reshape(K, -1, 2))
-        return torch.view_as_complex(out).reshape((K,) + grid_shape)
+    assert tuple(x.shape[1:]) == grid_shape, (x.shape, grid_shape)
+    K = x.shape[0]
+    chunk = _chunk(chunk, P, K)
     if x.is_cuda:
         full_f32_matmul()
     xr = torch.view_as_real(x.reshape(K, N))               # (K, N, 2)
@@ -250,3 +239,50 @@ def tile_interp_apply(corner, wkb, grid_shape, x, adjoint=False,
         g = xr.index_select(1, idx.reshape(-1)).reshape(K, hi - lo, P, 2)
         y[lo:hi] = torch.einsum("kmpr,mp->mkr", g, W)
     return torch.view_as_complex(y)
+
+
+def kb_scatter(corner, wkb, grid_shape, x, chunk=None):
+    """G^H: samples x (M, K) complex -> grid (K, *grid_shape), one
+    ``index_add_`` per sample chunk; patch nodes outside the grid fold back
+    periodically (they are taken mod grid_shape)."""
+    grid_shape = tuple(int(g) for g in grid_shape)
+    N = int(np.prod(grid_shape))
+    M = corner.shape[0]
+    P = wkb.shape[-1] ** len(grid_shape)
+    x = x.to(torch.complex64)
+    assert x.shape[0] == M, (x.shape, M)
+    K = x.shape[1]
+    chunk = _chunk(chunk, P, K)
+    out = torch.zeros((K, N, 2), dtype=torch.float32, device=x.device)
+    yr = torch.view_as_real(x)                             # (M, K, 2)
+    for lo in range(0, M, chunk):
+        hi = min(M, lo + chunk)
+        idx, W = _patch_index_weights(corner[lo:hi], wkb[lo:hi], grid_shape)
+        src = W[None, :, :, None] * yr[lo:hi].transpose(0, 1)[:, :, None]
+        out.index_add_(1, idx.reshape(-1), src.reshape(K, -1, 2))
+    return torch.view_as_complex(out).reshape((K,) + grid_shape)
+
+
+def tile_interp_apply(plan, x, adjoint=False, chunk=None):
+    """Apply the gridding interpolation G of a tile plan (or its adjoint),
+    with the reference's signature and layouts.
+
+    Forward: x (N, K) grid -> (M, K) samples. Adjoint: x (M, K) samples ->
+    (N, K) grid. x is a tensor (the result lives on its device) or a numpy
+    array; a real x gives a real result. A call-compatibility entry: it
+    derives the plan's patches and moves them to x's device on every call.
+    Operators hold the patches as buffers and call :func:`kb_gather` /
+    :func:`kb_scatter` directly.
+    """
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    corner, wkb = (torch.from_numpy(a).to(x.device)
+                   for a in kb_patches(plan))
+    K = x.shape[1]
+    if adjoint:
+        y = kb_scatter(corner, wkb, plan.grid_shape, x,
+                       chunk=chunk).reshape(K, -1).T
+    else:
+        g = x.T.reshape((K,) + tuple(plan.grid_shape))
+        y = kb_gather(corner, wkb, plan.grid_shape, g, chunk=chunk)
+    return y if x.is_complex() else y.real

@@ -25,7 +25,8 @@ def _block_layout(Tf):
     return Tf
 
 
-def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw"):
+def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
+                         sigma=False):
     """Batched Toeplitz SENSE normal op.
 
     Tf:   (*2N) float32 spectrum, stored as ``layout`` says
@@ -44,13 +45,22 @@ def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw"):
         kernel's ``kernel_spectrum``); the plain torch matmul-DFT pipeline,
         any rank, any device.
       "kernel": block layout; the CUDA kernel K1 (3D, on the GPU; CPU
-        tensors take its plain version).
+        tensors take its plain version). "pallas", the reference's name
+        for its fused-kernel layout, is accepted as a synonym.
       "fft": raw order; the per-axis ``torch.fft`` path
         (``ops/toeplitz_fft.py``), kept as a cross-check.
     ``coil_chunk`` processes the coils in chunks of this size (snapped to a
     divisor of nc), bounding the doubled-grid working set; the chunks are a
-    Python loop of one normal-op call each.
+    Python loop of one normal-op call each. ``sigma`` is the reference's
+    TPU-only basis switch: False is accepted, True raises (the CUDA kernel
+    works in natural order).
     """
+    if sigma:
+        raise NotImplementedError(
+            "sense_normal_batched(sigma=True): the sigma basis is a TPU "
+            "kernel contract; the CUDA kernel takes natural-order volumes")
+    if layout == "pallas":
+        layout = "kernel"
     from ..ops.dft_cuda import sense_normal_cuda, sense_normal_reference
     from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
 

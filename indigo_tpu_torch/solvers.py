@@ -1,14 +1,19 @@
 """Iterative solvers on the device, with no host sync inside the loop.
 
-Counterpart of ``indigo_tpu/solvers.py`` (``cg``). The reference runs the
-solve as one compiled ``lax.scan`` / ``lax.while_loop``; here the loop is
-Python, every step is enqueued on the operands' device, and every decision
-(the ``tol`` freeze) is a ``torch.where`` on the device, so nothing waits
-for the device until the caller reads the result.
+Counterpart of ``indigo_tpu/solvers.py`` (``cg``, ``apgd``/``fista``,
+``max_eigen``, ``soft_thresh``). The reference runs each solve as one
+compiled ``lax.scan`` / ``lax.while_loop``; here the loop is Python, every
+step is enqueued on the operands' device, and every decision (the ``tol``
+freeze) is a ``torch.where`` on the device, so nothing waits for the device
+until the caller reads the result. A solve runs where its tensors live,
+and on the card when it is handed none: a numpy operand, or the start
+vector of ``max_eigen``, goes to ``device`` if that is given, else to the
+operator's device, else (a matvec callable, an operator without arrays) to
+``"cuda"``. ``device="cpu"`` asks for the host.
 
-``cg`` accepts an :class:`~indigo_tpu_torch.operators.Operator` or a plain
-matvec callable and treats its operands as one long vector for inner
-products.
+``cg`` and ``max_eigen`` accept an
+:class:`~indigo_tpu_torch.operators.Operator` or a plain matvec callable
+and treat their operands as one long vector for inner products.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from .operators import Operator
 
-__all__ = ["cg"]
+__all__ = ["cg", "apgd", "fista", "max_eigen", "soft_thresh"]
 
 
 def _as_matvec(A):
@@ -37,15 +42,29 @@ def _vdot(a, b):
     return torch.vdot(a.reshape(-1), b.reshape(-1)).real
 
 
-def _device_of(A):
-    if isinstance(A, Operator):
-        for t in A.buffers():
-            return t.device
-    return None
+def _place(A, device):
+    """Where a solve that was handed no tensor runs."""
+    if device is not None:
+        return torch.device(device)
+    own = A.device if isinstance(A, Operator) else None
+    return own if own is not None else torch.device("cuda")
+
+
+def _operand(x, A, device, dtype=None):
+    """x as a tensor: a tensor moves only to an explicit ``device``, a
+    numpy array goes where :func:`_place` says."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    x = torch.as_tensor(np.asarray(x), device=_place(A, device))
+    return x.to(dtype=dtype)
+
+
+def _norm(a):
+    return torch.linalg.vector_norm(a.reshape(-1))
 
 
 def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
-       precond=None):
+       precond=None, device=None):
     """Conjugate Gradient for Hermitian positive-definite ``A`` (+ lamda*I).
 
     Solves (A + lamda*I) x = b. Returns ``(x, info)``: ``info["iters"]``
@@ -58,15 +77,13 @@ def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
     state freezes (``torch.where``), which is where the reference's
     ``while_loop`` would stop, so x, iters and resid equal the reference's
     without a host sync per step. ``precond``: an Operator or callable
-    z = M^{-1} r. ``b``, ``x0``: tensors (numpy arrays are moved to the
-    operator's device).
+    z = M^{-1} r. ``b``, ``x0``: tensors or numpy arrays; ``device``: see
+    the module docstring.
     """
     mv = _as_matvec(A)
-    if not torch.is_tensor(b):
-        b = torch.as_tensor(np.asarray(b), device=_device_of(A))
+    b = _operand(b, A, device)
     x0 = (torch.zeros_like(b) if x0 is None
-          else torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0)
-                               else x0, device=b.device).to(b.dtype))
+          else _operand(x0, A, b.device, b.dtype))
 
     def matvec(v):
         Av = mv(v)
@@ -109,3 +126,97 @@ def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
         info["resids"] = (torch.stack(resids) if resids
                           else torch.zeros((0,), device=b.device))
     return x, info
+
+
+def soft_thresh(x, lamda):
+    """Complex soft-thresholding: the prox of lamda * ||.||_1."""
+    mag = x.abs()
+    scale = torch.clamp(mag - lamda, min=0.0) / torch.clamp(mag, min=1e-30)
+    return (scale * x).to(x.dtype)
+
+
+def apgd(gradf, proxg, alpha, x0, maxiter=100, history=False, tol=0.0,
+         objective=None, device=None):
+    """Accelerated proximal gradient descent (FISTA).
+
+    Minimizes f(x) + g(x) given ``gradf(x)`` and ``proxg(v, step)`` with
+    step size ``alpha``. ``x0``: a tensor (the solve runs on its device) or
+    a numpy array (moved to ``device``, by default the card).
+
+    ``tol``: optional stopping criterion on the relative step
+    ||x_k - x_{k-1}|| / max(||x_k||, eps); once met, the iterate is frozen
+    for the remaining steps (``torch.where``, as ``cg``) and
+    ``info['iters']`` (0-d int32 tensor) reports the iterations actually
+    taken. With ``tol == 0`` no convergence work is enqueued and the
+    momentum ``t`` is host arithmetic. ``objective``: optional callable
+    f(x) -> 0-d tensor evaluated each iteration into ``info['objs']`` when
+    ``history=True``.
+
+    Returns ``(x, info)``; with ``history=True`` info carries per-iteration
+    step norms ``deltas`` (zero after convergence) and, if ``objective`` is
+    given, ``objs``.
+    """
+    x0 = _operand(x0, None, device)
+    dev = x0.device
+    track = tol > 0
+    x = z = x0
+    t = torch.ones((), dtype=torch.float32, device=dev) if track else 1.0
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    deltas, objs = [], []
+    for _ in range(maxiter):
+        xn = proxg(z - alpha * gradf(z), alpha)
+        tn = 0.5 * (1.0 + (1.0 + 4.0 * t * t) ** 0.5)
+        zn = xn + ((t - 1.0) / tn) * (xn - x)
+        if track or history:
+            delta = _norm(xn - x)
+        if track:
+            rel = delta / torch.clamp(_norm(xn), min=1e-30)
+            xn = torch.where(done, x, xn)
+            zn = torch.where(done, z, zn)
+            tn = torch.where(done, t, tn)
+            k = torch.where(done, k, k + 1)
+            if history:
+                delta = torch.where(done, torch.zeros_like(delta), delta)
+            done = done | (rel <= tol)
+        x, z, t = xn, zn, tn
+        if history:
+            deltas.append(delta)
+            if objective is not None:
+                objs.append(torch.as_tensor(objective(x), device=dev))
+    info = {"iters": k if track else k + maxiter}
+    if history:
+        empty = torch.zeros((0,), device=dev)
+        info["deltas"] = torch.stack(deltas) if deltas else empty
+        if objective is not None:
+            info["objs"] = torch.stack(objs) if objs else empty
+    return x, info
+
+
+fista = apgd
+
+
+def max_eigen(A, n, iters=30, key=None, dtype=torch.complex64, device=None):
+    """Largest eigenvalue of Hermitian PSD ``A`` by power iteration (a 0-d
+    real tensor); used to pick the FISTA step size alpha = 1 / L.
+
+    ``key``: a ``torch.Generator`` or an int seed (None: seed 0) for the
+    start vector, which is drawn on the host and moved; the stream differs
+    from the reference's, so the two agree on the eigenvalue, not on the
+    vector. ``device``: where the iteration runs; by default the operator's
+    device (a callable or an operator without arrays: the card).
+    """
+    mv = _as_matvec(A)
+    device = _place(A, device)
+    gen = key
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(0 if key is None else int(key))
+    v = torch.randn(n, generator=gen, dtype=torch.float32).to(
+        device=device, dtype=dtype)
+    v = v / _norm(v)
+    lam = None
+    for _ in range(iters):
+        w = mv(v)
+        lam = _vdot(v, w)
+        v = w / torch.clamp(_norm(w), min=1e-30)
+    return lam

@@ -380,9 +380,11 @@ def _out_dtype(data, x):
     return torch.promote_types(data.dtype, x.dtype)
 
 
-def element_spmm(e, x, adjoint=False):
+def element_spmm(e, x, adjoint=False, precision="highest"):
     """y = A @ x (or A^H @ x) for ElementELL A: forward gather + reduce;
-    adjoint sorted-segment sum (or scatter-add) of conj weights."""
+    adjoint sorted-segment sum (or scatter-add) of conj weights.
+    ``precision`` is the reference's TPU matmul knob, accepted and ignored:
+    every product here is full f32."""
     M, N = e.shape
     K = x.shape[1]
     dt = _out_dtype(e.data, x)
@@ -423,10 +425,11 @@ def _x_blocks(x, C, bn):
     return x.reshape(C, bn, -1)
 
 
-def jag_spmm(jag, x):
+def jag_spmm(jag, x, precision="highest"):
     """y = A @ x for BlockedJag A — plain torch: gather the x slab of every
     block, one batched product, then a sum over ``brows``. In full f32 (TF32
-    off) on CUDA, matching the reference's ``Precision.HIGHEST``."""
+    off) on CUDA, matching the reference's ``Precision.HIGHEST``
+    (``precision`` is accepted for call compatibility and ignored)."""
     if x.is_cuda:
         full_f32_matmul()
     M = jag.shape[0]
@@ -439,9 +442,10 @@ def jag_spmm(jag, x):
     return y.reshape(-1, K)[:M]
 
 
-def bell_spmm(ell, x):
+def bell_spmm(ell, x, precision="highest"):
     """y = A @ x for BlockedELL A — plain torch, one gather + batched
-    product per ELL slot. Full f32 on CUDA, as :func:`jag_spmm`."""
+    product per ELL slot. Full f32 on CUDA, as :func:`jag_spmm`
+    (``precision`` likewise ignored)."""
     if x.is_cuda:
         full_f32_matmul()
     M = ell.shape[0]

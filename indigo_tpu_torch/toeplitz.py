@@ -99,15 +99,14 @@ def _toeplitz_kernel_device(traj, big, grid2, width, beta, w, device):
     host build takes minutes there.
     """
     from .noncart import deapodization
-    from .ops.tile_interp import plan_tile_interp, kb_patches, \
-        tile_interp_apply
+    from .ops.tile_interp import kb_patches, kb_scatter, plan_tile_interp
 
     plan = plan_tile_interp(traj, grid2, width=width, beta=beta)
     corner, wkb = kb_patches(plan)
     corner = torch.from_numpy(corner).to(device)
     wkb = torch.from_numpy(wkb).to(device)
     y = torch.from_numpy(w[:, None]).to(device)
-    v = tile_interp_apply(corner, wkb, grid2, y, adjoint=True)[0]
+    v = kb_scatter(corner, wkb, grid2, y)[0]
     del corner, wkb, y
     dims = tuple(range(len(grid2)))
     v = torch.fft.ifftshift(v, dim=dims)

@@ -59,8 +59,12 @@ def test_raw_and_block_layouts_agree(rng):
     a = _port(Tf, maps, xs, layout="raw")
     b = _port(block_spectrum(Tf), maps, xs, layout="block")
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # the reference's name for its fused-kernel layout is a synonym of
+    # "kernel" (block-order spectrum); an unknown layout still raises
+    c = _port(block_spectrum(Tf), maps, xs, layout="pallas", sigma=False)
+    np.testing.assert_array_equal(c.numpy(), b.numpy())
     with pytest.raises(ValueError):
-        _port(Tf, maps, xs, layout="pallas")
+        _port(Tf, maps, xs, layout="nope")
 
 
 def _recon_problem(rng):

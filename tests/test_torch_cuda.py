@@ -337,3 +337,144 @@ def test_spmm_kernels_bitwise_deterministic_and_equal(cuda):
         assert torch.equal(y1, y2)
         ys.append(y1)
     assert torch.equal(ys[0], ys[1])
+
+
+# ---- the operator algebra, the tree optimizer and FISTA on the card ------
+# torch code throughout (no hand-written kernel): each operator on the card
+# against itself on the CPU, 1e-5 (f32 sums in another order).
+
+def _new_leaves(rng):
+    import indigo_tpu_torch as tit
+    from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
+
+    traj = rng.uniform(-0.5, 0.5, size=(300, 3))
+    A = tit.DenseMatrix(rand64c(24, 30, rng=rng))
+    B = tit.DenseMatrix(rand64c(24, 18, rng=rng))
+    return {
+        "UnscaledFFT": tit.UnscaledFFT((12, 10, 8)),
+        "CropPad": tit.CropPad((6, 8, 10), (8, 8, 16)),
+        "Mask": tit.Mask(rng.permutation(500)[:200], 500),
+        "Eye": tit.Eye(40),
+        "One": tit.One((30, 20)),
+        "DenseMatrix": A,
+        "KBInterp_halo": tit.KBInterp(plan_tile_interp(
+            traj, (20, 20, 20), width=4, beta=6.5)),
+        "BlockDiag": tit.BlockDiag([A, B]),
+        "HStack": tit.HStack([A, B]),
+        "DWT": tit.DWT((16, 32, 16), "db4", levels=1, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("kind", ["UnscaledFFT", "CropPad", "Mask", "Eye",
+                                  "One", "DenseMatrix", "KBInterp_halo",
+                                  "BlockDiag", "HStack", "DWT"])
+def test_new_operator_cuda_matches_cpu(cuda, kind):
+    import copy
+    rng = np.random.default_rng(21)
+    op = _new_leaves(rng)[kind]
+    g = copy.deepcopy(op).to(cuda)
+    x = torch.from_numpy(rand64c(op.shape[1], 3, rng=rng))
+    y = torch.from_numpy(rand64c(op.shape[0], 3, rng=rng))
+    fwd, adj = g * x.to(cuda), g.H * y.to(cuda)
+    assert fwd.is_cuda and adj.is_cuda
+    assert rel_err(fwd, op * x) < 1e-5
+    assert rel_err(adj, op.H * y) < 1e-5
+    if g.device is not None:
+        assert g.device.type == "cuda"
+        # a numpy operand lands on the operator's device
+        assert (g * x.numpy()).is_cuda
+
+
+def _cartesian(rng, n=32, nc=4, **kw):
+    from indigo_tpu_torch.models import cartesian_sense_op
+    mask = rng.random((n, n)) < 0.4
+    mask[n // 2 - 2:n // 2 + 2] = True
+    return cartesian_sense_op(mask, rand64c(nc, n, n, rng=rng), **kw)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """With no ``device`` the model functions return trees on the card, and the
+    solvers put a numpy operand or a bare matvec's vectors there."""
+    import indigo_tpu_torch as tit
+    from indigo_tpu_torch.models import (centered_fft_op, nufft_op,
+                                         sense_nufft_op)
+    rng = np.random.default_rng(24)
+    traj = rng.uniform(-0.5, 0.5, size=(200, 2))
+    maps = rand64c(2, 16, 16, rng=rng)
+    trees = [_cartesian(rng), centered_fft_op((8, 8)),
+             nufft_op(traj, (16, 16))[0], sense_nufft_op(traj, maps)[0],
+             nufft_op(traj, (16, 16), interp="sparse", fft="xla")[0],
+             tit.DWT((16, 16), "db4", levels=1)]
+    for t in trees:
+        assert all(b.is_cuda for b in t.buffers()), t.name
+    H = torch.from_numpy(
+        (np.eye(12) + 0.1 * np.diag(np.arange(12))).astype(np.complex64))
+    Hg = H.to(cuda)
+    x, info = tit.cg(lambda v: Hg @ v, rand64c(12, rng=rng), maxiter=5)
+    assert x.is_cuda and info["resid"].is_cuda
+    assert tit.max_eigen(lambda v: Hg @ v, 12, iters=5).is_cuda
+    u, _ = tit.apgd(lambda v: Hg @ v, lambda v, a: v, 0.1,
+                    np.ones(12, np.complex64), maxiter=3)
+    assert u.is_cuda
+    uc, _ = tit.apgd(lambda v: H @ v, lambda v, a: v, 0.1,
+                     np.ones(12, np.complex64), maxiter=3, device="cpu")
+    assert not uc.is_cuda and rel_err(u, uc) < 1e-5
+
+
+def test_optimize_keeps_the_tree_on_its_device(cuda):
+    import indigo_tpu_torch as tit
+    rng = np.random.default_rng(22)
+    A = _cartesian(rng, device="cpu")
+    Nc = (A.H * A).optimize()
+    Ag = _cartesian(np.random.default_rng(22))
+    Ng = (Ag.H * Ag).optimize()
+    assert all(b.is_cuda for b in Ng.buffers())
+    kinds = {type(m).__name__ for m in Ng.modules()}
+    assert "Mask" not in kinds
+    x = torch.from_numpy(rand64c(A.shape[1], 2, rng=rng))
+    assert rel_err(Ng * x.to(cuda), Nc * x) < 2e-5
+    assert rel_err(Ng * x.to(cuda), Ag.H * (Ag * x.to(cuda))) < 2e-5
+    # a fused SpMatrix leaf lands on the card too (and runs K3 there)
+    import scipy.sparse as sp
+    S = sp.random(40, 50, density=0.2, random_state=3, dtype=np.float32)
+    tree = (tit.Diag(rand64c(40, rng=rng).real.copy()) * tit.SpMatrix(S))
+    out = tree.to(cuda).optimize()
+    assert isinstance(out, tit.SpMatrix)
+    assert all(b.is_cuda for b in out.buffers())
+    v = torch.from_numpy(rand64c(50, 2, rng=rng))
+    assert rel_err(out * v.to(cuda), tree.to("cpu") * v) < 1e-5
+
+
+def test_cartesian_cg_and_fista_cuda_match_cpu(cuda):
+    import indigo_tpu_torch as tit
+    rng = np.random.default_rng(23)
+    A = _cartesian(rng, device="cpu")
+    Ag = _cartesian(np.random.default_rng(23))
+    n = A.shape[1]
+    x_true = torch.from_numpy(rand64c(n, 1, rng=rng))
+    y = A * x_true
+    xc, _ = tit.cg((A.H * A).optimize(), A.H * y, lamda=1e-2, tol=0.0,
+                   maxiter=20)
+    xg, info = tit.cg((Ag.H * Ag).optimize(), Ag.H * y.to(cuda), lamda=1e-2,
+                      tol=0.0, maxiter=20)
+    assert xg.is_cuda and info["iters"].is_cuda
+    assert rel_err(xg, xc) < 1e-4
+    Lc = tit.max_eigen(A.H * A, n, iters=30)
+    Lg = tit.max_eigen(Ag.H * Ag, n, iters=30)
+    assert Lg.is_cuda and abs(float(Lg) - float(Lc)) / float(Lc) < 1e-5
+    W = tit.DWT((32, 32), "db4", levels=2, device="cpu")
+    Wg = tit.DWT((32, 32), "db4", levels=2)
+    lam, step = 2e-3, 1.0 / (1.05 * float(Lc))
+
+    def run(A, W, y):
+        def gradf(u):
+            r = A.apply(W.apply(u, adjoint=True)) - y
+            return W.apply(A.apply(r, adjoint=True))
+        return tit.apgd(gradf, lambda v, a: tit.soft_thresh(v, lam * a),
+                        step, torch.zeros_like(A.H * y), maxiter=30,
+                        history=True)
+    uc, ic = run(A, W, y)
+    ug, ig = run(Ag, Wg, y.to(cuda))
+    assert ug.is_cuda and ig["deltas"].is_cuda
+    assert rel_err(ug, uc) < 1e-4
+    assert rel_err(ig["deltas"], ic["deltas"]) < 1e-3

@@ -39,7 +39,7 @@ def test_gridding_forward_matches(rng, grid, width):
     x = rand64c(K, *grid, rng=rng)
     ref = np.asarray(jti.tile_interp_apply(
         jp, jnp.asarray(x.reshape(K, -1).T)))
-    out = tti.tile_interp_apply(corner, wkb, grid, torch.from_numpy(x))
+    out = tti.kb_gather(corner, wkb, grid, torch.from_numpy(x))
     assert rel_err(out, ref) < 1e-5
 
 
@@ -50,8 +50,7 @@ def test_gridding_adjoint_matches(rng, grid, width):
     y = rand64c(tp.n_samples, 3, rng=rng)
     ref = np.asarray(jti.tile_interp_apply(jp, jnp.asarray(y),
                                            adjoint=True))
-    out = tti.tile_interp_apply(corner, wkb, grid, torch.from_numpy(y),
-                                adjoint=True, chunk=64)
+    out = tti.kb_scatter(corner, wkb, grid, torch.from_numpy(y), chunk=64)
     assert rel_err(out.reshape(3, -1).T, ref) < 1e-5
 
 
@@ -64,7 +63,7 @@ def test_kb_patches_match_interp_mat(rng, grid, width):
     corner, wkb = (torch.from_numpy(a) for a in tti.kb_patches(tp))
     G = interp_mat(traj, grid, width=width, beta=6.5).toarray()
     eye = torch.eye(tp.n_samples, dtype=torch.complex64)
-    rows = tti.tile_interp_apply(corner, wkb, grid, eye, adjoint=True)
+    rows = tti.kb_scatter(corner, wkb, grid, eye)
     assert rel_err(rows.reshape(tp.n_samples, -1).numpy(), G) < 1e-6
 
 

@@ -42,7 +42,7 @@ def _problem(n, nc=4, col_tiling=None, seed=0):
     maps = smooth_maps(nc, n, rng)
     kw = dict(oversamp=1.5, width=4, interp="sparse", col_tiling=col_tiling)
     Aj, pj = j_sense_nufft_op(traj, maps, **kw)
-    At, pt = sense_nufft_op(traj, maps, **kw)
+    At, pt = sense_nufft_op(traj, maps, device="cpu", **kw)
     return rng, Aj, pj, At, pt
 
 
@@ -75,7 +75,7 @@ def test_col_tiling_permutation_matches_reference():
     another order)."""
     traj = radial_traj(48, 64)
     j_op, _ = jit_.models.nufft_op(traj, (32, 32), interp="sparse")
-    t_op, _ = nufft_op(traj, (32, 32), interp="sparse")
+    t_op, _ = nufft_op(traj, (32, 32), interp="sparse", device="cpu")
     (jp,) = [o for o in _walk(j_op) if isinstance(o, jit_.Perm)]
     (tp,) = _leaves(t_op, Perm)
     np.testing.assert_array_equal(tp.perm.numpy(), np.asarray(jp.perm))
@@ -157,7 +157,7 @@ def test_cg_takes_a_callable_and_numpy(rng):
     H = (np.eye(n) + B.conj().T @ B / (4 * n)).astype(np.complex64)
     b = rand64c(n, rng=rng)
     Ht = torch.from_numpy(H)
-    x, info = cg(lambda v: Ht @ v, b, tol=0.0, maxiter=40)
+    x, info = cg(lambda v: Ht @ v, b, tol=0.0, maxiter=40, device="cpu")
     ref = np.linalg.solve(H.astype(np.complex128), b.astype(np.complex128))
     assert rel_err(x, ref) < 1e-4
     assert "resids" not in info and int(info["iters"]) <= 40
@@ -170,7 +170,7 @@ def test_1d_nufft_op_matches_reference(n, oversamp, rng):
     reference (Morton tiling of 128 grid nodes when the grid divides)."""
     traj = rng.random((300, 1)) - 0.5
     Aj, pj = jit_.models.nufft_op(traj, (n,), oversamp=oversamp)
-    At, pt = nufft_op(traj, (n,), oversamp=oversamp)
+    At, pt = nufft_op(traj, (n,), oversamp=oversamp, device="cpu")
     np.testing.assert_array_equal(pt.perm, pj.perm)
     assert len(_leaves(At, SpMatrix)) == 1
     x = rand64c(n, 2, rng=rng)

@@ -107,6 +107,35 @@ raises and exits non-zero):
      (128^2, 4 coils, 100 iterations).
   Neither of these two paths launches a hand-written kernel (the reference
   runs them without one): their [profile] lines say where their time goes.
+  9. sharded (the multi-device paths of ``parallel/``, on the ONE card): 4
+     ranks started by ``parallel.launch``, each with ``cuda:0``, talking
+     over gloo; the kernels are the library phase 1 built. Every tensor of
+     the computation lives on the card; only the collectives' payloads
+     cross the host (pinned staging buffers, ``parallel.collectives``).
+     This measures correctness and what that transport costs, not scaling:
+     four ranks time-slice one card, and no time here says anything of four
+     cards. At 256^3 / 8 coils, the serving lane's kooshball, maps and
+     phantom, 10 CG iterations:
+     (d) fftn_sharded (x=4) and fftn_sharded2 (x=2, y=2) on a 256^3 volume,
+         forward and inverse, against torch.fft on the card (<= 1e-5);
+     (a) sense_batch_recon(mesh=(slice=2, coil=2)) on 2 right-hand sides,
+         1 slice x 4 coils per rank, against sense_batch_recon(mesh=None)
+         (<= 1e-4); K1 launches on every rank (5 per normal-op call), no
+         plain normal op on the card, finite decreasing residuals;
+     (b) sense_vol_recon(mesh=(vol=4)) and sense_vol_recon2 (vz=2, vy=2) on
+         one of them, against the same single-device solve (<= 1e-4);
+     (c) SenseReconSharded(vol=4, dcf="radial") on one noisy acquisition
+         against SenseRecon on the same grid (320^3: the mesh pads
+         nothing) (<= 1e-4).
+     Each of (a)-(c) prints first and warm seconds per solve, seconds per
+     iteration, the bytes each rank sent per iteration, the share of the
+     solve inside collectives, the transport and the peak memory per rank.
+     (e) one rank over NCCL at 64^3: (a) and (b) once more; with one rank
+         every mesh axis has size 1 and the entry points skip their
+         collectives, so the check is that the path runs and equals the
+         single-device answer, and the three transport functions
+         (all_to_all_single, all_reduce, all_gather) are called directly on
+         the NCCL group and must return their input.
 After the counted runs, one warm solve of each path runs under
 torch.profiler ([profile] lines: device time by kernel, busy share; for the
 radial solve also K3's share and the launches per CG iteration).
@@ -211,16 +240,20 @@ def phantom(n):
             ).astype(np.complex64)
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     t0 = time.time()
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     try:  # the port uses no Triton; the version is recorded for later work
         import triton
         triton_version = triton.__version__
@@ -1732,6 +1765,325 @@ def phase_fista(maps, x_true):
                                                 objective=False))
 
 
+SHARDED_RANKS, SHARDED_TIMEOUT = 4, 700.0
+FFT_TOL = 1e-5
+
+
+def _timed_solves(mesh, solve, iters):
+    """Run ``solve`` twice (first, warm) on this rank: seconds per solve,
+    and from the mesh's counters the warm solve's collective seconds and
+    bytes sent. Returns (last result, fields)."""
+    import torch
+    secs, stats = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = dict(mesh.stats)
+        t0 = time.time()
+        out = solve()
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        stats.append({k: None if mesh.stats[k] is None
+                      else mesh.stats[k] - before[k] for k in before})
+    warm = stats[1]
+    return out, _solve_fields(secs, warm, iters)
+
+
+def _solve_fields(secs, warm, iters):
+    """The readings of a timed pair of solves; the collectives' seconds are
+    "n/a" on a transport the host cannot time (``stats["seconds"]`` None)."""
+    timed = warm["seconds"] is not None
+    return dict(
+        first_s=secs[0], warm_s=secs[1], s_per_iter=secs[1] / iters,
+        bytes_sent_per_rank_per_iter=warm["bytes_sent"] / iters,
+        collectives_per_solve=warm["calls"],
+        collective_s=warm["seconds"] if timed else "n/a",
+        collective_share=warm["seconds"] / secs[1] if timed else "n/a")
+
+
+def _check_solve(label, x, x_ref, res, tol=PATH_TOL):
+    import torch
+    from indigo_tpu_torch.utils import rel_err
+    res = np.asarray(res.cpu() if torch.is_tensor(res) else res)
+    if not (np.all(np.isfinite(res)) and np.all(res[-1] < res[0])):
+        raise AssertionError(f"{label}: residuals {res}")
+    err = rel_err(x, x_ref)
+    if not err <= tol:
+        raise AssertionError(f"{label} vs the single-device answer: "
+                             f"rel_err {err:.3e}")
+    return dict(rel_err_vs_single_device=err,
+                resid_first=float(res[0].max()),
+                resid_last=float(res[-1].max()))
+
+
+def sharded_ranks(workdir, lamda):
+    """What each of the 4 ranks that share the card runs in phase 9. The
+    global arrays come from ``workdir`` (written by ``phase_sharded``);
+    returns rank 0's readings."""
+    import torch
+    from indigo_tpu_torch.ops import _build
+    from indigo_tpu_torch.ops.dft_cuda import (
+        LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
+    from indigo_tpu_torch.parallel import (
+        SenseReconSharded, fftn_sharded, fftn_sharded2, make_mesh,
+        sense_batch_recon, sense_vol_recon, sense_vol_recon2)
+    from indigo_tpu_torch.parallel import collectives as C
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    if not os.path.exists(os.path.join(_build.build_dir(),
+                                       "libindigo_kernels.so")):
+        raise AssertionError("the ranks build nothing: phase 1 must have "
+                             "built the kernel library")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def load(name, device=dev):
+        a = np.load(os.path.join(workdir, name + ".npy"), mmap_mode="r")
+        return a if device is None else torch.from_numpy(
+            np.array(a)).to(device)
+
+    out = {"transport": None}
+    peak = {}
+
+    def peak_gb(key):
+        # the largest of the ranks' peaks since the last reset
+        mine = torch.tensor([torch.cuda.max_memory_allocated() / 1e9])
+        peak[key] = float(C.gather_blocks(mine, world, world.group()).max())
+        torch.cuda.reset_peak_memory_stats()
+
+    # (d) the distributed FFT, slab and pencil
+    world = make_mesh(x=SHARDED_RANKS)
+    out["transport"] = C.transport(world)
+    pencil = make_mesh(x=2, y=2)
+    v = torch.from_numpy(rand64c(N, N, N, rng=SEED + 9)).to(dev)
+    fft = {}
+    for inverse in (False, True):
+        want = (torch.fft.ifftn if inverse else torch.fft.fftn)(v)
+        for key, got in (
+                ("slab", lambda: fftn_sharded(v, world, "x", inverse=inverse)),
+                ("pencil", lambda: fftn_sharded2(v, pencil,
+                                                 inverse=inverse))):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = got()
+            torch.cuda.synchronize()
+            name = key + ("_inverse" if inverse else "")
+            fft[name] = (rel_err(res, want), time.time() - t0)
+            if not fft[name][0] <= FFT_TOL:
+                raise AssertionError(f"fftn_sharded {name} vs torch.fft: "
+                                     f"rel_err {fft[name][0]:.3e}")
+            del res
+        del want
+    del v
+    out["fft"] = fft
+    pencil.close()
+    peak_gb("fft")
+
+    Tf, maps, rhs = load("Tf"), load("maps"), load("rhs")
+    x_ref = load("x_ref")                                   # (2, n)
+
+    # (a) slices x coils: K1 on every rank's (1 slice, 4 coils) block
+    mesh = make_mesh(slice=2, coil=2)
+    sense_normal_cuda.launches = 0
+    sense_normal_reference.cuda_calls = 0
+    (xs, res), fields = _timed_solves(
+        mesh, lambda: sense_batch_recon(Tf, maps, rhs, mesh=mesh,
+                                        lamda=lamda, iters=ITERS,
+                                        coil_chunk=COIL_CHUNK), ITERS)
+    counts = C.gather_blocks(torch.tensor(
+        [sense_normal_cuda.launches, sense_normal_reference.cuda_calls]),
+        world, world.group()).cpu().numpy()
+    per_solve = LAUNCHES_PER_CALL * ITERS      # 4 local coils, one chunk
+    if not (np.all(counts[:, 0] == 2 * per_solve)
+            and np.all(counts[:, 1] == 0)):
+        raise AssertionError(
+            f"(a) K1 launches / plain normal-op calls per rank {counts}, "
+            f"expected {2 * per_solve} / 0")
+    fields.update(_check_solve("(a) sense_batch_recon(mesh)", xs, x_ref,
+                               res))
+    fields["k1_launches_per_rank"] = counts[:, 0].tolist()
+    out["batch"] = fields
+    del xs
+    mesh.close()
+    peak_gb("batch")
+
+    # (b) one volume in z slabs, then in (z, y) pencils
+    vol = rhs[0].reshape(N, N, N)
+    slab = make_mesh(vol=SHARDED_RANKS)
+    (x, res), fields = _timed_solves(
+        slab, lambda: sense_vol_recon(Tf, maps, vol, slab, lamda=lamda,
+                                      iters=ITERS), ITERS)
+    fields.update(_check_solve("(b) sense_vol_recon", x.ravel(), x_ref[0],
+                               res))
+    out["slab"] = fields
+    del x
+    peak_gb("slab")
+    pen = make_mesh(vz=2, vy=2)
+    (x, res), fields = _timed_solves(
+        pen, lambda: sense_vol_recon2(Tf, maps, vol, pen, lamda=lamda,
+                                      iters=ITERS), ITERS)
+    fields.update(_check_solve("(b) sense_vol_recon2", x.ravel(), x_ref[0],
+                               res))
+    out["pencil"] = fields
+    if sense_normal_cuda.launches != 2 * per_solve:
+        raise AssertionError("the volume-sharded solves launched K1")
+    del x, Tf, maps, rhs, vol
+    pen.close()
+    torch.cuda.empty_cache()
+    peak_gb("pencil")
+
+    # (c) k-space in, image out
+    t0 = time.time()
+    rec = SenseReconSharded(kooshball_traj(NSPOKES, NREAD, seed=SEED),
+                            load("maps", None), slab, dcf="radial",
+                            oversamp=OVERSAMP, width=WIDTH, iters=ITERS)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    grid = tuple(int(2 * round(N * OVERSAMP / 2)) for _ in range(3))
+    if rec.grid_shape != grid or abs(rec.lamda / lamda - 1) > 1e-5:
+        raise AssertionError(
+            f"(c) grid {rec.grid_shape} (single device {grid}), lamda "
+            f"{rec.lamda} (single device {lamda})")
+    y = load("y", None)
+    (x, res), fields = _timed_solves(
+        slab, lambda: rec(y, return_resids=True), ITERS)
+    fields.update(_check_solve("(c) SenseReconSharded", x,
+                               load("x_e2e", None), res), init_s=init_s)
+    out["e2e"] = fields
+    peak_gb("e2e")
+    out["peak_gb"] = peak
+    slab.close()
+    world.close()
+    return out
+
+
+def nccl_one_rank():
+    """Phase 9 (e): one rank over NCCL at 64^3."""
+    import torch
+    from indigo_tpu_torch.ops.dft_cuda import sense_normal_cuda
+    from indigo_tpu_torch.parallel import (
+        make_mesh, sense_batch_recon, sense_vol_recon, sense_vol_recon2)
+    from indigo_tpu_torch.parallel import collectives as C
+    from indigo_tpu_torch.toeplitz import toeplitz_kernel
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    n, nc = 64, 4
+    traj = kooshball_traj(1024, n, seed=SEED)
+    maps = torch.from_numpy(coil_maps(n, nc, seed=SEED)).cuda()
+    Tf = toeplitz_kernel(traj, (n, n, n), oversamp=OVERSAMP, width=WIDTH,
+                         warn=False, device="cuda")
+    lam = 0.05 * float(np.abs(Tf).max())
+    Tf = torch.from_numpy(Tf).cuda()
+    rhs = torch.from_numpy(rand64c(2, n ** 3, rng=SEED)).cuda()
+    mesh = make_mesh(slice=1, coil=1)
+    out = {"transport": C.transport(mesh)}
+    if out["transport"] != "nccl":
+        raise AssertionError(f"one rank per card runs over NCCL, got "
+                             f"{out['transport']}")
+    sense_normal_cuda.launches = 0
+    x0, _ = sense_batch_recon(Tf, maps, rhs, lamda=lam, iters=ITERS)
+    xm, _ = sense_batch_recon(Tf, maps, rhs, mesh=mesh, lamda=lam,
+                              iters=ITERS)
+    out["k1_launches"] = sense_normal_cuda.launches
+    vol = rhs[0].reshape(n, n, n)
+    xv, _ = sense_vol_recon(Tf, maps, vol, make_mesh(vol=1), lamda=lam,
+                            iters=ITERS)
+    xp, _ = sense_vol_recon2(Tf, maps, vol, make_mesh(vz=1, vy=1),
+                             lamda=lam, iters=ITERS)
+    out["err"] = {"batch": rel_err(xm, x0), "slab": rel_err(xv.ravel(), x0[0]),
+                  "pencil": rel_err(xp.ravel(), x0[0])}
+    # the NCCL entry of each transport function, on the one-rank group
+    g = mesh.group()
+    send = rhs[:1].reshape(1, n * n // 8, 8 * n).contiguous()
+    got = {"all_to_all_single": C.exchange(send, mesh, g),
+           "all_reduce": C.reduce_sum(send, mesh, g),
+           "all_gather": C.gather_blocks(send[0], mesh, g)}
+    torch.cuda.synchronize()
+    for key, val in got.items():
+        if not torch.equal(val, send):
+            raise AssertionError(f"NCCL {key} on one rank changed its input")
+    out["nccl_calls"] = mesh.stats["calls"]
+    for key, err in out["err"].items():
+        if not err <= PATH_TOL:
+            raise AssertionError(f"(e) {key} over NCCL: rel_err {err:.3e}")
+    return out
+
+
+def phase_sharded():
+    """Phase 9: the sharded paths on 4 ranks that share the card (gloo), and
+    on one rank over NCCL. Returns the K1 launches of all ranks in (a)."""
+    import tempfile
+
+    import torch
+    from indigo_tpu_torch.models import SenseRecon
+    from indigo_tpu_torch.parallel.launch import launch
+    from indigo_tpu_torch.parallel.recon import sense_batch_recon
+    from indigo_tpu_torch.toeplitz import toeplitz_kernel
+
+    t0 = time.time()
+    card = card_line()
+    traj = kooshball_traj(NSPOKES, NREAD, seed=SEED)
+    maps = coil_maps(N, NC, seed=SEED)
+    rec = SenseRecon(traj, maps, oversamp=OVERSAMP, width=WIDTH, iters=ITERS,
+                     coil_chunk=COIL_CHUNK, device="cuda")
+    y0 = rec.simulate(phantom(N))
+    rng = np.random.default_rng(SEED + 8)
+    sigma = 0.01 * float(np.sqrt(np.mean(np.abs(y0) ** 2) / 2))
+    ys = [(y0 + sigma * (rng.standard_normal(y0.shape, dtype=np.float32)
+                         + 1j * rng.standard_normal(y0.shape,
+                                                    dtype=np.float32))
+           ).astype(np.complex64) for _ in range(2)]
+    rhs = torch.cat([rec.rhs(y) for y in ys])                # (2, n)
+    x_e2e = rec(ys[0])
+    # the raw spectrum the solvers take, with SenseRecon's radial weights
+    w = (np.sum(traj ** 2, axis=1) + (0.5 / N) ** 2).astype(np.float32)
+    Tf = toeplitz_kernel(traj, (N, N, N), oversamp=OVERSAMP, width=WIDTH,
+                         weights=w / w.max(), warn=False, device="cuda")
+    lamda = rec.lamda
+    x_ref, _ = sense_batch_recon(
+        torch.from_numpy(Tf).cuda(), rec.maps, rhs, lamda=lamda,
+        iters=ITERS, coil_chunk=COIL_CHUNK)
+    with tempfile.TemporaryDirectory(prefix="indigo_sharded_") as work:
+        for name, a in (("Tf", Tf), ("maps", maps), ("y", ys[0]),
+                        ("rhs", rhs.cpu().numpy()), ("x_e2e", x_e2e),
+                        ("x_ref", x_ref.cpu().numpy())):
+            np.save(os.path.join(work, name + ".npy"), a)
+        del rec, rhs, x_ref, Tf, maps, ys, y0, x_e2e
+        torch.cuda.empty_cache()
+        log("sharded_inputs", t0, shape=f"{N}^3", nc=NC, rhs=2,
+            lamda=f"{lamda:.4g}")
+        t0 = time.time()
+        out = launch(sharded_ranks, SHARDED_RANKS,
+                     args=(work, lamda), timeout=SHARDED_TIMEOUT)
+    print(f"[sharded] ranks={SHARDED_RANKS} on one card ({card}); "
+          f"transport={out['transport']}: only the collectives' payloads "
+          "cross the host, every other operation runs on the card; this "
+          "measures correctness and the transport's cost, not scaling",
+          flush=True)
+    print("[sharded_fft] " + " ".join(
+        f"{k}_rel_err={e:.3e} {k}_s={s:.3f}"
+        for k, (e, s) in out["fft"].items())
+        + f" peak_gb_per_rank={out['peak_gb']['fft']:.2f}", flush=True)
+    meshes = {"batch": "slice=2,coil=2", "slab": "vol=4",
+              "pencil": "vz=2,vy=2", "e2e": "vol=4"}
+    for key, mesh in meshes.items():
+        f = out[key]
+        print(f"[sharded_{key}] mesh={mesh} " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in f.items())
+            + f" peak_gb_per_rank={out['peak_gb'][key]:.2f} "
+            f"transport={out['transport']!r} card={card!r}", flush=True)
+    log("sharded", t0, ranks=SHARDED_RANKS)
+    t0 = time.time()
+    one = launch(nccl_one_rank, 1, timeout=300.0)
+    log("sharded_nccl", t0, ranks=1, transport=one["transport"], shape="64^3",
+        k1_launches=one["k1_launches"], nccl_calls=one["nccl_calls"],
+        note="one rank: every mesh axis has size 1, so the entry points skip "
+        "their collectives; checked that the paths run and equal the "
+        "single-device answer, and that all_to_all_single, all_reduce and "
+        "all_gather on the NCCL group return their input",
+        **{f"rel_err_{k}": f"{v:.3e}" for k, v in one["err"].items()})
+    return int(np.sum(out["batch"]["k1_launches_per_rank"]))
+
+
 def main():
     phase_device()
     phase_build()
@@ -1754,7 +2106,9 @@ def main():
     phase_cartesian(maps, x_true)
     torch.cuda.empty_cache()
     phase_fista(maps, x_true)
+    del maps, x_true
     torch.cuda.empty_cache()
+    launches += phase_sharded()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

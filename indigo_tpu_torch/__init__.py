@@ -31,13 +31,19 @@ The slices ported so far:
   (FISTA), ``max_eigen`` and ``soft_thresh``.
   These two paths are torch code throughout (``torch.fft``, gathers, small
   matrix products), as the reference runs them without a hand-written
-  kernel.
+  kernel;
+* the multi-device paths over a ``torch.distributed`` mesh (``parallel``):
+  ``make_mesh``, slab and pencil ``fftn_sharded``/``fftn_sharded2``,
+  ``sense_batch_recon(mesh=)`` (slices x coils, K1 on every rank's block),
+  ``sense_vol_recon``/``sense_vol_recon2`` (one volume in z slabs or
+  pencils) and ``SenseReconSharded`` (k-space in, image out), with
+  ``parallel.launch`` to start the ranks on one host.
 
 The whole operator algebra of the reference is here (``operators``); its
 float64 numpy spec is ``oracle``.
 """
-from . import (operators, transforms, solvers, sparse, utils, noncart,
-               oracle, models, wavelet, toeplitz, parallel)
+from . import (operators, transforms, analyses, solvers, sparse, utils,
+               noncart, oracle, models, wavelet, toeplitz, parallel)
 from .operators import (
     Operator, SpMatrix, KBInterp, DenseMatrix, Diag, UnscaledFFT,
     CenteredDFT, GridDFT, Eye, One, Mask,
@@ -50,7 +56,8 @@ from .toeplitz import ToeplitzNormal, sense_normal_toeplitz
 from .utils import rand64c, rel_err
 
 __all__ = [
-    "operators", "transforms", "solvers", "sparse", "utils", "noncart",
+    "operators", "transforms", "analyses", "solvers", "sparse", "utils",
+    "noncart",
     "oracle", "models", "wavelet", "toeplitz", "parallel",
     "Operator", "SpMatrix", "KBInterp", "DenseMatrix", "Diag", "UnscaledFFT",
     "CenteredDFT", "GridDFT", "Eye", "One", "Mask", "CropPad", "Perm",

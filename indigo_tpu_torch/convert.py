@@ -23,7 +23,7 @@ import numpy as np
 
 __all__ = ["state_from_reference_arrays", "sparse_from_reference",
            "spmatrix_from_reference", "toeplitz_from_reference",
-           "operator_from_reference"]
+           "operator_from_reference", "sharded_state_from_reference"]
 
 
 def state_from_reference_arrays(*, Tf, maps, w_sorted, perm, deapod, tid,
@@ -200,3 +200,26 @@ def operator_from_reference(op):
         return DWT(op.vol_shape, wavelet=op._wavelet, levels=op._levels,
                    dtype=dt(), name=name, device="cpu")
     raise TypeError(f"not a reference operator the port knows: {kind}")
+
+
+def sharded_state_from_reference(rec):
+    """The host state of a reference ``SenseReconSharded`` as numpy arrays
+    and plain values: ``perm``, ``Bmats``, ``dam``, ``Tf``, ``lamda``,
+    ``grid_shape``, ``nt``, and ``chunks``/``w_chunks`` (3D) or ``w_sorted``
+    (2D). The port's object holds the same under the same names (its
+    tensors are this rank's blocks where the volume is sharded)."""
+    state = {
+        "perm": np.asarray(rec.perm, np.int64),
+        "Bmats": [np.asarray(_host(B), np.complex64) for B in rec._Bmats],
+        "dam": np.asarray(_host(rec._dam), np.complex64),
+        "Tf": np.asarray(rec._Tf, np.float32),
+        "lamda": float(rec.lamda),
+        "grid_shape": tuple(int(g) for g in rec.grid_shape),
+        "nt": tuple(int(n) for n in rec.nt),
+    }
+    if rec.ndim == 3:
+        state["chunks"] = np.asarray(rec._chunks, np.int64)
+        state["w_chunks"] = np.asarray(rec._w_chunks, np.float32)
+    else:
+        state["w_sorted"] = np.asarray(rec._w_sorted, np.float32)
+    return state

@@ -1,8 +1,21 @@
-"""Batched SENSE normal operator, per-slice CG and the batch solver (torch).
+"""Batched SENSE normal operator, per-slice CG, and the batch, slab and
+pencil solvers on one device or over a mesh (torch).
 
-Counterpart of ``indigo_tpu/parallel/recon.py`` (``sense_normal_batched``,
-``batched_cg``, ``sense_batch_recon`` on one device). The sharded and
-volume-sharded solvers are still to be ported (ROADMAP Queue 1, item 12).
+Counterpart of ``indigo_tpu/parallel/recon.py``:
+
+* ``sense_normal_batched``, ``batched_cg``: the normal op over a (slice,
+  coil, *image) batch and the per-slice CG, on the tensors they are given;
+* ``sense_batch_recon``: many slices on one device or, with ``mesh`` (axes
+  'slice' and 'coil'), slices over 'slice' and coils over 'coil', the coil
+  sum a ``psum``;
+* ``sense_normal_volsharded`` / ``sense_vol_recon``: one 3D volume in z
+  slabs over one mesh axis; ``sense_normal_volsharded2`` /
+  ``sense_vol_recon2``: in (z, y) pencils over two.
+
+Where the reference wraps a block function in ``shard_map``, every rank of
+the mesh here calls the entry point with the same global arrays, cuts its
+own block (``mesh.Placement``), runs the whole CG on it and gets the global
+result back; the collectives are ``parallel.collectives``.
 """
 from __future__ import annotations
 
@@ -11,7 +24,14 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["sense_normal_batched", "batched_cg", "sense_batch_recon"]
+from .collectives import all_to_all, psum
+from .mesh import Placement
+
+__all__ = [
+    "sense_normal_batched", "batched_cg", "sense_batch_recon",
+    "sense_normal_volsharded", "sense_vol_recon",
+    "sense_normal_volsharded2", "sense_vol_recon2",
+]
 
 
 def _block_layout(Tf):
@@ -102,8 +122,8 @@ def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
     return out.reshape(S, -1).to(xs.dtype)
 
 
-def batched_cg(matvec, rhs, lamda=0.0, iters=20, tol=0.0, precond=None,
-               return_iters=False):
+def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
+               precond=None, return_iters=False, mesh=None):
     """Per-slice CG with (leading-axis) inner products, optional tol stop
     and preconditioning.
 
@@ -116,8 +136,17 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, tol=0.0, precond=None,
     count reports the steps actually taken). The loop makes no host sync:
     every decision is a ``torch.where`` on the device.
 
-    ``precond``: callable z = M^{-1}(r), positive definite.
+    ``precond``: callable z = M^{-1}(r), positive definite. ``psum_axis``:
+    when the feature dimension itself is sharded over ``mesh`` (volume
+    slabs or pencils), the inner products reduce across its ranks: an axis
+    name of ``mesh`` or a tuple of names. Every rank then holds the same
+    bits in every scalar, so the ``done`` mask, and with it the sequence of
+    collectives, is the same on all of them.
     """
+    if psum_axis is not None and mesh is None:
+        raise ValueError("batched_cg: psum_axis names axes of a mesh; pass "
+                         "mesh= along with it")
+
     def mv(v):
         out = matvec(v)
         if not (isinstance(lamda, (int, float)) and lamda == 0):
@@ -127,7 +156,10 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, tol=0.0, precond=None,
     applyM = precond if precond is not None else (lambda r: r)
 
     def pdot(a, b):  # per-slice real inner product -> (S, 1)
-        return torch.sum((a.conj() * b).real, dim=-1, keepdim=True)
+        d = torch.sum((a.conj() * b).real, dim=-1, keepdim=True)
+        if psum_axis is not None:
+            d = psum(d, mesh, psum_axis)
+        return d
 
     track = tol > 0
     S = rhs.shape[0]
@@ -171,40 +203,202 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, tol=0.0, precond=None,
     return x, resids
 
 
+def _tensor(a, device, dtype):
+    a = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
 def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
                       coil_chunk=None):
-    """Many-slice SENSE recon on one device: CG on the batched normal op.
+    """Many-slice SENSE recon: CG on the batched normal op, on one device
+    or sharded over a mesh.
 
     Tf (*2N) float32 raw spectrum (what ``toeplitz_kernel`` returns), maps
-    (nc, *N) complex64, rhs (S, n) complex64: tensors or numpy arrays (numpy
-    goes to ``maps``' device, the CPU for numpy maps). The spectrum is
-    permuted once, before the loop: for CUDA tensors in a volume the kernel
-    takes (``ops.dft_cuda.supported``) into ``kernel_spectrum`` order and
-    the normal op runs K1 (``layout="kernel"``), otherwise into
-    ``block_spectrum`` order on the plain pipeline (``"block"``). Returns
-    (xs (S, n), resids (iters, S)) tensors on that device.
+    (nc, *N) complex64, rhs (S, n) complex64: tensors or numpy arrays. The
+    spectrum is permuted once, before the loop: for CUDA tensors in a
+    volume the kernel takes (``ops.dft_cuda.supported``) into
+    ``kernel_spectrum`` order and the normal op runs K1
+    (``layout="kernel"``), otherwise into ``block_spectrum`` order on the
+    plain pipeline (``"block"``). Returns (xs (S, n), resids (iters, S))
+    tensors.
 
-    ``mesh``: the sharded solve is not ported yet and raises.
+    ``mesh=None``: everything on ``maps``' device (the CPU for numpy maps).
+    ``mesh`` (axes 'slice' and 'coil'; every rank calls with the same global
+    arrays): maps are cut over 'coil', rhs over 'slice', the spectrum is
+    replicated; each rank runs the whole CG on its (slice, coil) block on
+    ``mesh.device``, and the only collective in the loop is the ``psum`` of
+    the coil combine over 'coil'. ``coil_chunk`` is snapped to a divisor of
+    the rank's own coil count. Every rank gets the global result.
     """
     from ..ops.dft_cuda import supported
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sense_batch_recon over a mesh is not ported yet (ROADMAP "
-            "Queue 1, item 12); pass mesh=None")
-    dev = maps.device if torch.is_tensor(maps) else torch.device("cpu")
-
-    def tensor(a, dtype):
-        a = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
-        return a.to(device=dev, dtype=dtype)
-
-    maps = tensor(maps, torch.complex64)
-    rhs = tensor(rhs, torch.complex64)
-    Tb = _block_layout(tensor(Tf, torch.float32)).contiguous()
+    if mesh is None:
+        dev = maps.device if torch.is_tensor(maps) else torch.device("cpu")
+        maps = _tensor(maps, dev, torch.complex64)
+        rhs = _tensor(rhs, dev, torch.complex64)
+    else:
+        dev = mesh.device
+        maps = Placement(mesh, ("coil",)).local(maps, torch.complex64)
+        rhs = Placement(mesh, ("slice",)).local(rhs, torch.complex64)
+    Tb = _block_layout(_tensor(Tf, dev, torch.float32)).contiguous()
     img_shape = tuple(maps.shape[1:])
     layout = ("kernel" if dev.type == "cuda" and supported(img_shape)
               else "block")
-    return batched_cg(
-        lambda v: sense_normal_batched(Tb, maps, v, coil_chunk=coil_chunk,
-                                       layout=layout),
-        rhs, lamda=lamda, iters=iters)
+
+    def mv(v):
+        out = sense_normal_batched(Tb, maps, v, coil_chunk=coil_chunk,
+                                   layout=layout)
+        return out if mesh is None else psum(out, mesh, "coil")
+
+    xs, resids = batched_cg(mv, rhs, lamda=lamda, iters=iters)
+    if mesh is None:
+        return xs, resids
+    return (Placement(mesh, ("slice",)).gather(xs),
+            Placement(mesh, (None, "slice")).gather(resids))
+
+
+def _coil_combine(per_coil, maps_l, v_l):
+    """sum_c conj(m_c) * per_coil(m_c * v): all local coils ride one leading
+    batch dimension, so each stage sends one message for all of them (the
+    reference scans the coils one at a time; the arithmetic is the same)."""
+    return torch.sum(maps_l.conj() * per_coil(maps_l * v_l), dim=0)
+
+
+def sense_normal_volsharded(Tf_l, maps_l, v_l, axis_name="vol", *, mesh):
+    """Toeplitz SENSE normal op for ONE volume sharded over its z axis.
+
+    Called by every rank of ``mesh`` with its own blocks (3D volumes, p =
+    the mesh axis size):
+      Tf_l   (2Nz, 2Ny/p, 2Nx)  <- Placement (None, axis, None)
+      maps_l (nc, Nz/p, Ny, Nx) <- Placement (None, axis, None, None)
+      v_l    (Nz/p, Ny, Nx)     <- Placement (axis, None, None)
+
+    Per coil: multiply the map; zero-aware padded FFT over the LOCAL axes
+    (y, x); all_to_all so z becomes local (splitting the now-doubled y
+    axis); padded FFT over z; multiply the matching Tf block; the inverse
+    transforms mirrored. Two all_to_all transposes per direction. The
+    transforms are ``torch.fft`` (``ops/toeplitz_fft.py``), as the
+    reference's are ``jnp.fft`` outside any kernel.
+    """
+    from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
+
+    def per_coil(u):                                  # (nc, Nz/p, Ny, Nx)
+        u = fft_pad2x(u, (2, 3))                      # (nc, Nz/p, 2Ny, 2Nx)
+        u = all_to_all(u, mesh, axis_name, split_axis=2, concat_axis=1)
+        u = fft_pad2x(u, (1,))                        # (nc, 2Nz, 2Ny/p, 2Nx)
+        u = Tf_l * u
+        u = ifft_crop2x(u, (1,))                      # (nc, Nz, 2Ny/p, 2Nx)
+        u = all_to_all(u, mesh, axis_name, split_axis=1, concat_axis=2)
+        return ifft_crop2x(u, (2, 3))                 # (nc, Nz/p, Ny, Nx)
+
+    return _coil_combine(per_coil, maps_l, v_l)
+
+
+def sense_normal_volsharded2(Tf_l, maps_l, v_l, axes=("vz", "vy"), *, mesh):
+    """Toeplitz SENSE normal op for ONE volume PENCIL-sharded over two mesh
+    axes (a, b) = ``axes`` of sizes (p, q): scales a single volume past the
+    slab form's p <= Nz.
+
+    Called by every rank of ``mesh`` with its own blocks:
+      Tf_l   (2Nz, 2Ny/p, 2Nx/q)   <- Placement (None, a, b)
+      maps_l (nc, Nz/p, Ny/q, Nx)  <- Placement (None, a, b, None)
+      v_l    (Nz/p, Ny/q, Nx)      <- Placement (a, b, None)
+
+    Per coil: multiply the map; padded FFT over the LOCAL x axis;
+    all_to_all over ``b`` (2Nx splits, y gathers); padded FFT over y;
+    all_to_all over ``a`` (2Ny splits, z gathers); padded FFT over z;
+    multiply the Tf pencil; the inverse mirrored. Four all_to_alls per
+    direction.
+    """
+    from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
+
+    a, b = axes
+
+    def per_coil(u):                                  # (nc, Nz/p, Ny/q, Nx)
+        u = fft_pad2x(u, (3,))                        # (.., Ny/q, 2Nx)
+        u = all_to_all(u, mesh, b, split_axis=3, concat_axis=2)
+        u = fft_pad2x(u, (2,))                        # (nc, Nz/p, 2Ny, 2Nx/q)
+        u = all_to_all(u, mesh, a, split_axis=2, concat_axis=1)
+        u = fft_pad2x(u, (1,))                        # (nc, 2Nz, 2Ny/p, 2Nx/q)
+        u = Tf_l * u
+        u = ifft_crop2x(u, (1,))                      # (nc, Nz, 2Ny/p, 2Nx/q)
+        u = all_to_all(u, mesh, a, split_axis=1, concat_axis=2)
+        u = ifft_crop2x(u, (2,))                      # (nc, Nz/p, Ny, 2Nx/q)
+        u = all_to_all(u, mesh, b, split_axis=2, concat_axis=3)
+        return ifft_crop2x(u, (3,))                   # (nc, Nz/p, Ny/q, Nx)
+
+    return _coil_combine(per_coil, maps_l, v_l)
+
+
+def _vol_solve(normal, Tf, maps, rhs, mesh, spec, psum_axis, lamda, iters):
+    """CG for one volume cut by ``spec`` (the mesh axes on its leading
+    dims): blocks of Tf (one dim later, on the doubled grid), maps and rhs,
+    the whole CG per rank, the global image back on every rank."""
+    Tf_l = Placement(mesh, (None,) + spec).local(Tf, torch.float32)
+    maps_l = Placement(mesh, (None,) + spec).local(maps, torch.complex64)
+    vol = Placement(mesh, spec)
+    rhs_l = vol.local(rhs, torch.complex64)
+
+    def mv(v):
+        return normal(Tf_l, maps_l, v.reshape(rhs_l.shape)).reshape(1, -1)
+
+    xs, resids = batched_cg(mv, rhs_l.reshape(1, -1), lamda=lamda,
+                            iters=iters, psum_axis=psum_axis, mesh=mesh)
+    return vol.gather(xs.reshape(rhs_l.shape)), resids[:, 0]
+
+
+def sense_vol_recon2(Tf, maps, rhs, mesh, axes=("vz", "vy"), lamda=0.0,
+                     iters=20):
+    """CG-SENSE for ONE 3D volume pencil-sharded over TWO mesh axes.
+
+    Same contract as :func:`sense_vol_recon`, with the volume cut (z over
+    ``axes[0]`` size p, y over ``axes[1]`` size q). Inner products reduce
+    over both axes. Requires Nz % p == 2Ny % p == Ny % q == 2Nx % q == 0.
+    """
+    img_shape = tuple(maps.shape[1:])
+    if len(img_shape) != 3:
+        raise ValueError("sense_vol_recon2 supports 3D volumes")
+    a, b = axes
+    p, q = mesh.shape[a], mesh.shape[b]
+    Nz, Ny, Nx = img_shape
+    if Nz % p or (2 * Ny) % p or Ny % q or (2 * Nx) % q:
+        raise ValueError(
+            f"volume {img_shape} not compatible with mesh axes {a}={p}, "
+            f"{b}={q}: need Nz%p == 2Ny%p == Ny%q == 2Nx%q == 0")
+
+    def normal(Tf_l, maps_l, v_l):
+        return sense_normal_volsharded2(Tf_l, maps_l, v_l, (a, b),
+                                        mesh=mesh)
+
+    return _vol_solve(normal, Tf, maps, rhs, mesh, (a, b), (a, b), lamda,
+                      iters)
+
+
+def sense_vol_recon(Tf, maps, rhs, mesh, axis_name="vol", lamda=0.0,
+                    iters=20):
+    """CG-SENSE for ONE 3D volume sharded over ``axis_name`` of ``mesh``.
+
+    Tf (*2N) float32 raw spectrum, maps (nc, *N), rhs (*N) complex: tensors
+    or numpy arrays, the same global arrays on every rank. The whole CG
+    runs per rank on its z slab; inner products reduce over the axis.
+    Returns (x (*N), resids (iters,)) tensors on the mesh's device, on
+    every rank.
+    """
+    img_shape = tuple(maps.shape[1:])
+    if len(img_shape) != 3:
+        raise ValueError(
+            f"sense_vol_recon supports 3D volumes, got {img_shape}; use "
+            "sense_batch_recon for 2D problems")
+    p = mesh.shape[axis_name]
+    if img_shape[0] % p or (2 * img_shape[1]) % p:
+        raise ValueError(
+            f"z ({img_shape[0]}) must be divisible by the mesh axis size "
+            f"{p}, and 2*Ny ({2 * img_shape[1]}) by {p} for the all_to_all "
+            "transpose")
+
+    def normal(Tf_l, maps_l, v_l):
+        return sense_normal_volsharded(Tf_l, maps_l, v_l, axis_name,
+                                       mesh=mesh)
+
+    return _vol_solve(normal, Tf, maps, rhs, mesh, (axis_name,), axis_name,
+                      lamda, iters)

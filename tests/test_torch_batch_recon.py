@@ -92,9 +92,25 @@ def test_sense_batch_recon_matches_reference(rng, coil_chunk):
     assert rel_err(rp, np.asarray(rr)) < 1e-4
 
 
-def test_sense_batch_recon_mesh_not_ported(rng):
+def test_sense_batch_recon_mesh_solves(rng, tmp_path):
+    """The call that used to raise now solves: a one-rank gloo group in this
+    process, a (1, 1) mesh, the same answer as mesh=None and as the
+    reference (the 8-rank meshes are tests/test_torch_parallel.py's)."""
+    import torch.distributed as dist
+    from indigo_tpu_torch.parallel import make_mesh
     from indigo_tpu_torch.parallel.recon import sense_batch_recon
 
     Tf, maps, rhs, lam = _recon_problem(rng)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        sense_batch_recon(Tf, maps, rhs, mesh=object(), lamda=lam)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cpu", slice=1, coil=1)
+        xm, rm = sense_batch_recon(Tf, maps, rhs, mesh=mesh, lamda=lam,
+                                   iters=12)
+    finally:
+        dist.destroy_process_group()
+    x0, r0 = sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12)
+    xr, _ = j_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12)
+    assert xm.shape == (1, rhs.shape[1]) and rm.shape == (12, 1)
+    assert torch.equal(xm, x0) and torch.equal(rm, r0)
+    assert rel_err(xm, np.asarray(xr)) < 1e-4

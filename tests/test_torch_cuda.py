@@ -478,3 +478,44 @@ def test_cartesian_cg_and_fista_cuda_match_cpu(cuda):
     assert ug.is_cuda and ig["deltas"].is_cuda
     assert rel_err(ug, uc) < 1e-4
     assert rel_err(ig["deltas"], ic["deltas"]) < 1e-3
+
+
+# ---- the sharded paths on ranks that share the card ------------------------
+
+def ranks_share_the_card(seed):
+    """Two gloo ranks on ``cuda:0``: a (slice, coil) solve through K1 on
+    each rank's coils, and the slab solve, against one device."""
+    from indigo_tpu_torch.parallel import (
+        make_mesh, sense_batch_recon, sense_vol_recon)
+    from indigo_tpu_torch.parallel import collectives as C
+    from indigo_tpu_torch.toeplitz import toeplitz_kernel
+
+    rng = np.random.default_rng(seed)
+    n, nc = 16, 4
+    traj = rng.random((400, 3)) - 0.5
+    maps = torch.from_numpy(rand64c(nc, n, n, n, rng=rng)).cuda()
+    Tf = toeplitz_kernel(traj, (n, n, n), oversamp=2.0, width=6, warn=False)
+    lam = 0.05 * float(np.abs(Tf).max())
+    rhs = torch.from_numpy(rand64c(2, n ** 3, rng=rng)).cuda()
+    mesh = make_mesh(slice=1, coil=2)
+    before = sense_normal_cuda.launches
+    xm, _ = sense_batch_recon(Tf, maps, rhs, mesh=mesh, lamda=lam, iters=8)
+    launches = sense_normal_cuda.launches - before
+    x0, _ = sense_batch_recon(Tf, maps, rhs, lamda=lam, iters=8)
+    xv, _ = sense_vol_recon(Tf, maps, rhs[0].reshape(n, n, n),
+                            make_mesh(vol=2), lamda=lam, iters=8)
+    return {"device": str(mesh.device), "transport": C.transport(mesh),
+            "launches": launches, "batch": rel_err(xm, x0),
+            "slab": rel_err(xv.ravel(), x0[0]), "on_card": xm.is_cuda}
+
+
+def test_sharded_solves_on_ranks_that_share_the_card(cuda):
+    from indigo_tpu_torch.ops._build import load_library
+    from indigo_tpu_torch.parallel.launch import launch
+
+    load_library()                  # built once here, loaded by the ranks
+    out = launch(ranks_share_the_card, 2, args=(5,), timeout=300.0)
+    assert out["device"] == "cuda:0" and out["on_card"]
+    assert out["transport"] == "gloo, staged through pinned host memory"
+    assert out["launches"] == 8 * LAUNCHES_PER_CALL     # K1, 2 local coils
+    assert out["batch"] < 1e-4 and out["slab"] < 1e-4

@@ -29,7 +29,13 @@ def test_import_leaves_jax_out():
             "indigo_tpu_torch.parallel.recon, indigo_tpu_torch.operators, "
             "indigo_tpu_torch.transforms, indigo_tpu_torch.wavelet, "
             "indigo_tpu_torch.oracle, indigo_tpu_torch.models.sense, "
-            "indigo_tpu_torch.ops.tile_interp, indigo_tpu_torch.utils\n"
+            "indigo_tpu_torch.ops.tile_interp, indigo_tpu_torch.utils, "
+            "indigo_tpu_torch.analyses, indigo_tpu_torch.parallel.mesh, "
+            "indigo_tpu_torch.parallel.collectives, "
+            "indigo_tpu_torch.parallel.dist_fft, "
+            "indigo_tpu_torch.parallel.e2e, "
+            "indigo_tpu_torch.parallel.launch, "
+            "indigo_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + GPU_ONLY!r}]\n"
             "print(','.join(bad))\n"

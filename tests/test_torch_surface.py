@@ -89,12 +89,17 @@ def test_operator_exports_equal_the_reference():
 
 
 def test_subpackage_exports():
+    import indigo_tpu.analyses as ja
     import indigo_tpu.parallel as jp
+    import indigo_tpu.utils as ju
+    import indigo_tpu_torch.analyses as ta
     import indigo_tpu_torch.parallel as tp
-    ported = ["sense_normal_batched", "batched_cg", "sense_batch_recon"]
-    for name in ported:
-        assert name in jp.__all__ and hasattr(tp, name) \
-            and name in tp.__all__
+    import indigo_tpu_torch.utils as tu
+    for j, t in ((jp, tp), (ja, ta), (ju, tu)):
+        assert sorted(t.__all__) == sorted(j.__all__)
+        for name in j.__all__:
+            assert hasattr(t, name), (t.__name__, name)
+    assert len(tp.__all__) == 14
     from indigo_tpu_torch.noncart import zpad_mat, checkerboard  # noqa: F401
     assert tit.Diag(np.ones(3, np.complex64)).shape == (3, 3)
 

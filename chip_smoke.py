@@ -136,6 +136,29 @@ raises and exits non-zero):
          single-device answer, and the three transport functions
          (all_to_all_single, all_reduce, all_gather) are called directly on
          the NCCL group and must return their input.
+  10. the rest of the package, one line per part:
+     (a) native: the C++ gridding code (built with g++ on first use; it
+         must load, nothing falls back) against the numpy build on the
+         256^2 radial trajectory (grid 384^2) and the serving kooshball
+         (1,048,576 samples, grid 320^3): equal nonzeros, max |diff| <=
+         1e-5; both builds' seconds and the OpenMP threads;
+     (b) profiling: measure_hbm_bandwidth() beside the 3.35e12 peak, the
+         row-gather cost behind GATHER_SEC_PER_ROW, roofline_report of one
+         apply of phase 7's A, and toeplitz_cg_iter_bytes(layout="kernel")
+         / _macs at 256^3 / 8 coils beside phase 3's seconds per iteration;
+     (c) backends: get_backend("cuda") and ("numpy") on the card; csrmm on
+         the 256^2 radial gridding matrix bitwise equal to the SpMatrix
+         applied directly (one K3 launch), and from its scipy CSR
+         (<= 1e-5); fftn/ifftn at 256^3 against torch.fft and cg through
+         the facade on the 64^2 radial recipe against solvers.cg (<= 1e-5);
+     (d) checkpoint: a 256^3 complex64 volume round trip (bitwise, save and
+         load seconds), and the 256^2 radial cg at a well-conditioned lamda
+         stopped at 15 iterations, saved, loaded and resumed, against 30
+         straight (<= 1e-4);
+     (e) examples: the five example scripts at their default sizes on the
+         card, their own asserts inside; K1 must launch in multicoil_3d and
+         serving_pipeline, K3 in radial_sense_2d. Their launches are added
+         to the kernels line.
 After the counted runs, one warm solve of each path runs under
 torch.profiler ([profile] lines: device time by kernel, busy share; for the
 radial solve also K3's share and the launches per CG iteration).
@@ -151,53 +174,16 @@ import time
 
 import numpy as np
 
+# the bounds' single source: H100 SXM peaks (3.35 TB/s HBM3, 67 TFLOP/s f32)
+from indigo_tpu_torch.profiling import (
+    HBM_BYTES_PER_SEC as HBM_BYTES_PER_S, pass_bytes, spmm_bound,
+    toeplitz_bound)
+
 SEED = 0
 N, NC, NSPOKES, NREAD = 256, 8, 4096, 256
 OVERSAMP, WIDTH, ITERS, COIL_CHUNK = 1.25, 4, 10, 4
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-4
-# NVIDIA H100 SXM published peaks: HBM3 bytes/s and f32 (CUDA-core) flop/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
-
-def bound(nbytes, flops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-
-def toeplitz_bound(shape, S, nc):
-    """K1 (nc maps, S images) or K2 (nc = 0, S volumes): inputs read and the
-    output written once; the zero-aware FFT round trip of every volume it
-    transforms (5 N log2 N flops per N-point FFT, two per line per axis
-    each way: 20, 40, 80 V log2 n for z, y, x), the spectrum multiply and,
-    for K1, the map multiply and conj-map sum."""
-    n1, n2, n3 = shape
-    V = n1 * n2 * n3
-    vols = S * max(nc, 1)
-    fft = V * (20 * np.log2(n1) + 40 * np.log2(n2) + 80 * np.log2(n3))
-    flops = vols * (fft + 16 * V + (14 * V if nc else 0))
-    nbytes = 8 * V * (2 * S + nc) + 4 * 8 * V
-    return bound(nbytes, flops)
-
-
-def pass_bytes(shape, S, nc):
-    """Bytes each of the five passes (z, y, x, y, z) moves when it reads its
-    inputs once and writes its output once: v and maps -> t1 (2V per
-    volume) -> t2 (4V) -> t2 and the f32 spectrum -> t1 -> out."""
-    V = int(np.prod(shape))
-    vols = S * max(nc, 1)
-    return [8 * V * (S + nc + 2 * vols), 8 * V * 6 * vols,
-            8 * V * 8 * vols + 32 * V, 8 * V * 6 * vols,
-            8 * V * (2 * vols + nc + S)]
-
-
-def spmm_bound(csr, K):
-    """y = A x with K real columns: every nonzero (value and column index)
-    and x read once, y written once; 2 flops per nonzero and column."""
-    M, Nc = csr.shape
-    return bound(8 * csr.nnz + 4 * K * (Nc + M), 2 * csr.nnz * K)
 
 
 def log(phase, t0, **fields):
@@ -625,7 +611,7 @@ def phase_main_path():
           flush=True)
     launches = sense_normal_cuda.launches
     profile_solve("serving", lambda: recon(ys[1]))
-    return launches
+    return launches, min(times[1:]) / ITERS
 
 
 RADIAL_N, RADIAL_NC, RADIAL_ITERS, RADIAL_LAMDA = 256, 8, 30, 0.1
@@ -1443,7 +1429,9 @@ def cartesian_small_check():
 
 def phase_cartesian(maps, x_true):
     """Phase 7: Cartesian CG-SENSE through the tree optimizer at 256^3 / 8
-    coils. No hand-written kernel is on this path."""
+    coils. No hand-written kernel is on this path. Returns
+    ``profiling.roofline_report`` of one apply of its A (read in phase
+    10)."""
     import torch
     from indigo_tpu_torch import cg, max_eigen, transforms
     from indigo_tpu_torch.models import cartesian_sense_op
@@ -1537,6 +1525,8 @@ def phase_cartesian(maps, x_true):
           f"A_ms={timed(lambda: A * v, 5):.3f} "
           f"A.H_ms={timed(lambda: A.H * y, 5):.3f}", flush=True)
     profile_solve("cartesian", lambda: solve(Nop))
+    from indigo_tpu_torch.profiling import roofline_report
+    return roofline_report(A, ncols=1)
 
 
 def assert_on_card(*ops):
@@ -2084,16 +2074,298 @@ def phase_sharded():
     return int(np.sum(out["batch"]["k1_launches_per_rank"]))
 
 
+NATIVE_TOL = 1e-5
+GATHER_TABLE_ROWS, GATHER_ROWS = 1 << 25, 1 << 24
+
+
+def phase_native():
+    """Phase 10 (a): the native C++ gridding code against the numpy
+    build, on the 256^2 radial path's trajectory (grid 384^2) and the
+    serving kooshball (grid 320^3)."""
+    from indigo_tpu_torch import native
+    from indigo_tpu_torch.noncart import interp_mat
+
+    t0 = time.time()
+    if not native.available():
+        raise AssertionError(f"native gridding library unavailable: {native._error}")
+    fields = dict(threads=native.num_threads())
+    # the grids of the two paths: oversampling 1.5 (radial), 1.25 (serving)
+    cases = (("radial", radial_traj(int(RADIAL_N * 1.5), 2 * RADIAL_N),
+              (int(2 * round(RADIAL_N * 1.5 / 2)),) * 2),
+             ("kooshball", kooshball_traj(NSPOKES, NREAD, seed=SEED),
+              (int(2 * round(N * OVERSAMP / 2)),) * 3))
+    for key, traj, grid in cases:
+        t = time.time()
+        An = interp_mat(traj, grid, width=WIDTH, impl="native")
+        tn = time.time() - t
+        t = time.time()
+        Ap = interp_mat(traj, grid, width=WIDTH, impl="numpy")
+        tp = time.time() - t
+        err = float(abs(An - Ap).max())
+        if An.nnz != Ap.nnz or not err <= NATIVE_TOL:
+            raise AssertionError(f"native vs numpy build ({key}): nnz "
+                                 f"{An.nnz} / {Ap.nnz}, max |diff| {err:.3e}")
+        fields.update({f"{key}_samples": len(traj),
+                       f"{key}_grid": "x".join(map(str, grid)),
+                       f"{key}_nnz": An.nnz, f"{key}_native_s": f"{tn:.3f}",
+                       f"{key}_numpy_s": f"{tp:.3f}",
+                       f"{key}_max_abs_diff": f"{err:.3e}"})
+        del An, Ap
+    log("rest_native", t0, **fields)
+
+
+def gather_sec_per_row():
+    """Seconds per row of a random row gather on the card (the measurement
+    behind ``profiling.GATHER_SEC_PER_ROW``): ``index_select`` of
+    GATHER_ROWS random rows of 8 bytes from a table of GATHER_TABLE_ROWS,
+    timed by differencing chains of 2 and 10 gathers."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    table = torch.randn((GATHER_TABLE_ROWS, 2), device="cuda", generator=g)
+    idx = torch.randint(0, GATHER_TABLE_ROWS, (GATHER_ROWS,), device="cuda",
+                        generator=g)
+    out = torch.empty((GATHER_ROWS, 2), device="cuda")
+
+    def chain(k):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(k):
+            torch.index_select(table, 0, idx, out=out)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    chain(2)
+    chain(10)
+    d = sorted(chain(10) - chain(2) for _ in range(3))[1]
+    return d / 8 / GATHER_ROWS
+
+
+def phase_profiling(roofline, serving_s_per_iter):
+    """Phase 10 (b): the card's measured memory rate and row-gather cost,
+    phase 7's roofline report, and the CG-iteration floor of the serving
+    lane beside phase 3's measured seconds per iteration."""
+    import indigo_tpu_torch.profiling as P
+
+    t0 = time.time()
+    bw = P.measure_hbm_bandwidth()
+    g = gather_sec_per_row()
+    nbytes = P.toeplitz_cg_iter_bytes((N,) * 3, NC, layout="kernel",
+                                      coil_chunk=COIL_CHUNK)
+    macs = P.toeplitz_cg_iter_macs((N,) * 3, NC)
+    floor = max(nbytes / P.HBM_BYTES_PER_SEC, macs / P.MXU_MACS_PER_SEC)
+    # a copy rate above the published peak would mean the differencing
+    # timed the host, not the card
+    if not (0 < bw <= 1.1 * P.HBM_BYTES_PER_SEC and g > 0 and nbytes > 0):
+        raise AssertionError(f"profiling: bandwidth {bw}, gather {g}, "
+                             f"bytes {nbytes}")
+    result, text = roofline
+    log("rest_profiling", t0, hbm_bytes_per_s_measured=f"{bw:.4g}",
+        hbm_bytes_per_s_peak=f"{P.HBM_BYTES_PER_SEC:.4g}",
+        hbm_share_of_peak=f"{bw / P.HBM_BYTES_PER_SEC:.4f}",
+        gather_sec_per_row_measured=f"{g:.4g}",
+        gather_sec_per_row_constant=f"{P.GATHER_SEC_PER_ROW:.4g}",
+        cg_iter_bytes_kernel=nbytes, cg_iter_macs=f"{macs:.4g}",
+        cg_iter_floor_ms=f"{floor * 1e3:.4f}",
+        serving_warm_s_per_iter=f"{serving_s_per_iter:.4f}",
+        cg_iter_floor_share=f"{floor / serving_s_per_iter:.4f}",
+        cartesian_A_sol_ms=f"{result['sol_sec'] * 1e3:.4f}",
+        cartesian_A_measured_ms=f"{result['measured_sec'] * 1e3:.4f}",
+        cartesian_A_roofline_frac=f"{result['roofline_frac']:.4f}")
+    print("[rest_roofline] " + " | ".join(text.splitlines()), flush=True)
+
+
+def phase_backends(A_radial):
+    """Phase 10 (c): the reference-shaped facade on the card, its csrmm on
+    the 256^2 radial path's gridding matrix G (the SpMatrix leaf of
+    ``A_radial``, on the card). Returns the K3 launches of its csrmm."""
+    import torch
+    import indigo_tpu_torch as it
+    from indigo_tpu_torch.backends import available_backends, get_backend
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+    from indigo_tpu_torch.sparse import jag_to_csr
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    t0 = time.time()
+    b, bn = get_backend("cuda"), get_backend("numpy")
+    d = b.Diag(rand64c(64, rng=SEED))
+    if not (b.device.type == bn.device.type == "cuda"
+            and available_backends() == ["cuda"]):
+        raise AssertionError(f"backends: {b}, {bn}, {available_backends()}")
+    assert_on_card(d)
+    _, _, G = gridding_leaf(A_radial)
+    X = torch.from_numpy(rand64c(G.shape[1], RADIAL_NC, rng=SEED)).cuda()
+    want = G.apply(X)
+    reset_counts()
+    got = b.csrmm(G, X)
+    torch.cuda.synchronize()
+    k3 = jag_spmm_cuda.launches
+    if not (torch.equal(got, want) and k3 == 1):
+        raise AssertionError(f"csrmm vs SpMatrix: equal "
+                             f"{torch.equal(got, want)}, {k3} K3 launches")
+    # from the scipy CSR, as a reference script calls it: the facade builds
+    # the SpMatrix on the card
+    reset_counts()
+    csr_err = rel_err(b.csrmm(jag_to_csr(G.ell), X), want)
+    k3_csr = jag_spmm_cuda.launches
+    if not (csr_err <= SPMM_TOL and k3_csr == 1):
+        raise AssertionError(f"csrmm of the CSR: rel_err {csr_err:.3e}, "
+                             f"{k3_csr} K3 launches")
+    k3 += k3_csr
+    vol = (N,) * 3
+    v = torch.from_numpy(rand64c(N ** 3, 1, rng=SEED)).cuda()
+    f_err = rel_err(b.fftn(v, vol), torch.fft.fftn(v.reshape(vol)).reshape(
+        -1, 1))
+    i_err = rel_err(b.ifftn(v, vol), (N ** 3) * torch.fft.ifftn(
+        v.reshape(vol)).reshape(-1, 1))
+    del v
+    A, _, x_true = radial_problem(64, 4)
+    A = A.to("cuda")
+    y = A * torch.from_numpy(x_true)[:, None].cuda()
+    rhs = A.H * y
+    xb, _ = b.cg(A.H * A, rhs, lamda=RADIAL_LAMDA, tol=0.0, maxiter=30)
+    xs, _ = it.cg(A.H * A, rhs, lamda=RADIAL_LAMDA, tol=0.0, maxiter=30)
+    cg_err = rel_err(xb, xs)
+    for key, err in (("fftn", f_err), ("ifftn", i_err), ("cg", cg_err)):
+        if not err <= SPMM_TOL:
+            raise AssertionError(f"backends {key}: rel_err {err:.3e}")
+    log("rest_backends", t0, backends=f"{b!r},{bn!r}",
+        csrmm_shape=f"{G.shape[0]}x{G.shape[1]}xK{RADIAL_NC}",
+        csrmm_bitwise_vs_spmatrix=True, csrmm_of_csr_rel_err=f"{csr_err:.3e}",
+        csrmm_k3_launches=k3,
+        fftn_rel_err=f"{f_err:.3e}", ifftn_rel_err=f"{i_err:.3e}",
+        cg_64sq_rel_err_vs_solvers=f"{cg_err:.3e}")
+    return k3
+
+
+def phase_checkpoint(A, x_true):
+    """Phase 10 (d): a 256^3 volume round trip, and a 256^2 radial cg
+    stopped at 15 iterations, saved, loaded and resumed, against 30
+    straight."""
+    import tempfile
+
+    import torch
+    from indigo_tpu_torch import cg, max_eigen
+    from indigo_tpu_torch.checkpoint import load_state, save_state
+    from indigo_tpu_torch.utils import rand64c, rel_err
+
+    t0 = time.time()
+    v = torch.from_numpy(rand64c(N, N, N, rng=SEED)).cuda()
+    with tempfile.TemporaryDirectory(prefix="indigo_ckpt_") as work:
+        path = os.path.join(work, "vol.npz")
+        torch.cuda.synchronize()
+        t = time.time()
+        save_state(path, {"x": v, "k": 0})
+        t_save = time.time() - t
+        t = time.time()
+        back = load_state(path, like={"x": v, "k": 0})
+        torch.cuda.synchronize()
+        t_load = time.time() - t
+        mb = os.path.getsize(path) / 1e6
+        if not (back["x"].device == v.device and torch.equal(back["x"], v)):
+            raise AssertionError("256^3 checkpoint round trip not bitwise")
+        del v, back
+        # the radial recipe at a well-conditioned lamda (0.3 x the largest
+        # eigenvalue of A^H A), where 15 + 15 restarted CG steps converge
+        # to the 30-step answer
+        y = A * torch.from_numpy(x_true)[:, None].cuda()
+        rhs = A.H * y
+        AHA = A.H * A
+        lam = 0.3 * float(max_eigen(AHA, A.shape[1], iters=20))
+        x30, _ = cg(AHA, rhs, lamda=lam, tol=0.0, maxiter=30)
+        x15, info = cg(AHA, rhs, lamda=lam, tol=0.0, maxiter=15)
+        path = os.path.join(work, "cg.npz")
+        save_state(path, {"x": x15, "iters": int(info["iters"])})
+        state = load_state(path, like={"x": x15, "iters": 0})
+        xr, _ = cg(AHA, rhs, x0=state["x"], lamda=lam, tol=0.0, maxiter=15)
+        err = rel_err(xr, x30)
+    if not (state["iters"] == 15 and err <= PATH_TOL):
+        raise AssertionError(f"checkpointed cg: {state['iters']} iterations "
+                             f"saved, resumed vs straight rel_err {err:.3e}")
+    log("rest_checkpoint", t0, volume=f"{N}^3", file_mb=f"{mb:.1f}",
+        save_s=f"{t_save:.3f}", load_s=f"{t_load:.3f}", bitwise=True,
+        cg=f"{RADIAL_N}^2 x {RADIAL_NC} coils, 15 + 15 vs 30",
+        lamda=f"{lam:.4g}", rel_err_resumed_vs_straight=f"{err:.3e}")
+
+
+def phase_examples():
+    """Phase 10 (e): the five example scripts at their default sizes on
+    the card. Returns the K1 and K3 launches they made."""
+    import contextlib
+    import io
+
+    import torch
+    from indigo_tpu_torch.examples import (
+        cartesian_sense_2d, cs_wavelet_fista, multicoil_3d, radial_sense_2d,
+        serving_pipeline)
+    from indigo_tpu_torch.ops.dft_cuda import sense_normal_cuda
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+
+    # the kernels each example must launch (K1: the Toeplitz CG; K3: the
+    # sparse gridding)
+    runs = (("cartesian_sense_2d", cartesian_sense_2d, ()),
+            ("radial_sense_2d", radial_sense_2d, ("k3",)),
+            ("multicoil_3d", multicoil_3d, ("k1",)),
+            ("cs_wavelet_fista", cs_wavelet_fista, ()),
+            ("serving_pipeline", serving_pipeline, ("k1",)))
+    total = {"k1": 0, "k3": 0}
+    for name, mod, needs in runs:
+        t0 = time.time()
+        reset_counts()
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                res = mod.main()        # the card, by its default
+            torch.cuda.synchronize()
+        except Exception:
+            print(printed.getvalue(), flush=True)
+            raise
+        grew = {"k1": sense_normal_cuda.launches,
+                "k3": jag_spmm_cuda.launches}
+        if res["device"] != "cuda" or any(grew[k] == 0 for k in needs):
+            raise AssertionError(f"example {name}: device {res['device']}, "
+                                 f"launches {grew}, expected {needs}")
+        for k in total:
+            total[k] += grew[k]
+        log("rest_example", t0, name=name, k1_launches=grew["k1"],
+            k3_launches=grew["k3"], **{
+                k: (f"{v:.4g}" if isinstance(v, float) else
+                    ",".join(f"{x:.4g}" for x in v) if isinstance(v, list)
+                    else v) for k, v in res.items()})
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_rest(roofline, serving_s_per_iter, radial):
+    """Phase 10: the rest of the package (native, profiling, backends,
+    checkpoint, examples). Returns the K1 and K3 launches it made."""
+    t0 = time.time()
+    phase_native()
+    phase_profiling(roofline, serving_s_per_iter)
+    A, x_true = radial
+    A = A.to("cuda")
+    k3 = phase_backends(A)
+    phase_checkpoint(A, x_true)
+    del A
+    launches = phase_examples()
+    launches["k3"] += k3
+    log("rest", t0, k1_launches=launches["k1"], k3_launches=launches["k3"])
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     worst, timing = phase_kernels()
-    launches = phase_main_path()
+    launches, serving_s_per_iter = phase_main_path()
     ops = build_radial_ops()
     spmm_rec = phase_spmm_kernels(ops)
     k3_launches = phase_radial(ops)
     k4_launches = phase_radial_bell(ops)
     import torch
+    # the 256^2 radial operator waits on the host for phase 10 (d)
+    radial = (ops[RADIAL_N].to("cpu"), ops["x_true"][RADIAL_N])
     del ops
     torch.cuda.empty_cache()
     k2_worst, k2_timing = phase_toeplitz_kernels()
@@ -2103,12 +2375,15 @@ def main():
     del tree
     torch.cuda.empty_cache()
     x_true = phantom(N)
-    phase_cartesian(maps, x_true)
+    roofline = phase_cartesian(maps, x_true)
     torch.cuda.empty_cache()
     phase_fista(maps, x_true)
     del maps, x_true
     torch.cuda.empty_cache()
     launches += phase_sharded()
+    rest = phase_rest(roofline, serving_s_per_iter, radial)
+    launches += rest["k1"]
+    k3_launches += rest["k3"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

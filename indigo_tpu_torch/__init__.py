@@ -40,10 +40,19 @@ The slices ported so far:
   ``parallel.launch`` to start the ranks on one host.
 
 The whole operator algebra of the reference is here (``operators``); its
-float64 numpy spec is ``oracle``.
+float64 numpy spec is ``oracle``. So are the rest of its modules: the
+native C++ gridding code (``native``, behind ``noncart.interp_mat``),
+the reference-shaped backend facade (``backends``: ``get_backend``),
+timing and H100 roofline floors (``profiling``), solver-state
+checkpoints (``checkpoint``) and the five example scripts
+(``python -m indigo_tpu_torch.examples.<name>``).
 """
+# The reference's ``cplx`` (split re/im planes at its device boundary) has
+# no counterpart: torch holds complex64 on the card.
 from . import (operators, transforms, analyses, solvers, sparse, utils,
-               noncart, oracle, models, wavelet, toeplitz, parallel)
+               noncart, oracle, models, wavelet, toeplitz, parallel, backends,
+               native, profiling, checkpoint)
+from .backends import get_backend, available_backends
 from .operators import (
     Operator, SpMatrix, KBInterp, DenseMatrix, Diag, UnscaledFFT,
     CenteredDFT, GridDFT, Eye, One, Mask,
@@ -58,7 +67,8 @@ from .utils import rand64c, rel_err
 __all__ = [
     "operators", "transforms", "analyses", "solvers", "sparse", "utils",
     "noncart",
-    "oracle", "models", "wavelet", "toeplitz", "parallel",
+    "oracle", "models", "wavelet", "toeplitz", "parallel", "backends",
+    "native", "profiling", "checkpoint", "get_backend", "available_backends",
     "Operator", "SpMatrix", "KBInterp", "DenseMatrix", "Diag", "UnscaledFFT",
     "CenteredDFT", "GridDFT", "Eye", "One", "Mask", "CropPad", "Perm",
     "Product", "Adjoint", "KronI", "BlockDiag", "VStack", "HStack", "Scale",
@@ -66,3 +76,5 @@ __all__ = [
     "BlockedELL", "csr_to_bell", "bell_spmm",
     "ToeplitzNormal", "sense_normal_toeplitz", "rand64c", "rel_err",
 ]
+
+__version__ = "0.1.0"

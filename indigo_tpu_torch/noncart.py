@@ -5,8 +5,8 @@ copied from indigo_tpu/noncart.py).
 These functions run once per pipeline on the host, so they stay numpy; the
 tests hold each one array-equal to indigo_tpu's so the copies cannot drift.
 ``pipe_menon_dcf`` can also run its fixed point on a torch device.
-``interp_mat`` has only the numpy branch here (the native C++ gridding code is
-still to be ported; ``impl="native"`` raises).
+``interp_mat`` takes the reference's three branches: the native C++ code
+(``native``, a copy of the reference's source), its numpy build, or ``auto``.
 
 Conventions:
   * trajectories are (M, d) arrays in cycles/pixel, range [-0.5, 0.5).
@@ -101,16 +101,16 @@ def sort_trajectory(traj, grid_shape, tile=None):
 
 def interp_mat(traj, grid_shape, width=4, beta=None, chunk=1 << 16,
                impl="auto"):
-    """Gridding/interpolation CSR matrix (M, prod(grid_shape)), numpy build.
+    """Gridding/interpolation CSR matrix (M, prod(grid_shape)).
 
     Row i holds the KB weights interpolating the *centered* oversampled
     spectrum at grid coordinate traj[i]*G + G/2, with periodic wraparound.
-    ``impl`` is the reference's implementation switch: 'auto' and 'numpy'
-    take this numpy build; 'native' (its C++ code) is not ported and raises.
+    ``impl``: 'native' (the multithreaded C++ code, ``native``; raises
+    ``RuntimeError`` when its library is unavailable), 'numpy' (vectorized,
+    chunked), or 'auto' (native when its library loads, else numpy), as in
+    the reference. The two builds differ by at most one f32 rounding of a
+    weight (the C++ code's polynomial Bessel I0 against ``np.i0``).
     """
-    if impl not in ("auto", "numpy"):
-        raise RuntimeError(f"interp_mat(impl={impl!r}): only the numpy "
-                           "build is ported")
     traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
     M, ndim = traj.shape
     G = tuple(int(g) for g in grid_shape)
@@ -118,6 +118,25 @@ def interp_mat(traj, grid_shape, width=4, beta=None, chunk=1 << 16,
     if beta is None:
         beta = beatty_beta(width, 2.0)
     Ntot = int(np.prod(G))
+
+    if impl in ("auto", "native"):
+        from . import native
+        out = native.kb_interp_ell(traj, G, width, float(beta)) \
+            if native.available() else None
+        if out is not None:
+            cols, wts = out
+            row_nnz = cols.shape[1]
+            indptr = np.arange(M + 1, dtype=np.int64) * row_nnz
+            A = sp.csr_matrix(
+                (wts.ravel(), cols.ravel(), indptr), shape=(M, Ntot))
+            A.sum_duplicates()
+            return A
+        if impl == "native":
+            raise RuntimeError("native gridding library unavailable"
+                               + (f": {native._error}" if native._error
+                                  else ""))
+    elif impl != "numpy":
+        raise ValueError(f"interp_mat: unknown impl {impl!r}")
 
     parts = []
     for lo in range(0, M, chunk):

@@ -519,3 +519,53 @@ def test_sharded_solves_on_ranks_that_share_the_card(cuda):
     assert out["transport"] == "gloo, staged through pinned host memory"
     assert out["launches"] == 8 * LAUNCHES_PER_CALL     # K1, 2 local coils
     assert out["batch"] < 1e-4 and out["slab"] < 1e-4
+
+
+# ---- the rest of the package: native, backends, profiling, checkpoint ------
+
+def test_native_library_is_available(cuda):
+    from indigo_tpu_torch import native
+    from indigo_tpu_torch.noncart import interp_mat
+    assert native.available(), native._error
+    assert native.num_threads() >= 1
+    traj = np.random.default_rng(3).uniform(-0.5, 0.5, size=(300, 3))
+    a = interp_mat(traj, (16, 16, 20), impl="native")
+    b = interp_mat(traj, (16, 16, 20), impl="numpy")
+    assert a.nnz == b.nnz and abs(a - b).max() < 1e-5
+
+
+def test_backend_csrmm_launches_k3(cuda):
+    from indigo_tpu_torch.backends import get_backend
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+    from indigo_tpu_torch.utils import randM
+    b = get_backend("cuda")
+    assert b.device.type == "cuda"
+    rng = np.random.default_rng(4)
+    A = randM(200, 300, 0.05, rng=rng, dtype=np.float32)
+    X = rand64c(300, 3, rng=rng)
+    G = b.SpMatrix(A)
+    before = jag_spmm_cuda.launches
+    y = b.csrmm(G, X)
+    torch.cuda.synchronize()
+    assert y.is_cuda and jag_spmm_cuda.launches == before + 1
+    assert torch.equal(y, G.apply(torch.from_numpy(X).cuda()))
+    assert rel_err(y, A @ X) < 1e-5
+
+
+def test_time_apply_uses_cuda_events(cuda):
+    from indigo_tpu_torch import Diag, UnscaledFFT
+    from indigo_tpu_torch.profiling import (measure_hbm_bandwidth,
+                                            time_apply)
+    assert time_apply(UnscaledFFT((64, 64)), k1=1, k2=3) > 0
+    d = Diag(rand64c(4096, rng=5)).to("cuda")
+    assert time_apply(d, ncols=2) > 0
+    assert measure_hbm_bandwidth(nbytes=1 << 24) > 0
+
+
+def test_checkpoint_of_a_cuda_tensor_comes_back_on_cuda(cuda, tmp_path):
+    from indigo_tpu_torch.checkpoint import load_state, save_state
+    x = torch.from_numpy(rand64c(1000, rng=6)).cuda()
+    p = save_state(str(tmp_path / "c.npz"), {"x": x, "k": 3})
+    out = load_state(p, like={"x": x, "k": 0})
+    assert out["x"].is_cuda and torch.equal(out["x"], x) and out["k"] == 3
+    assert not load_state(p)["x"].is_cuda

@@ -48,7 +48,7 @@ def test_sort_trajectory_equal(rng, d, tile):
 def test_interp_mat_equal(rng, d):
     traj = _traj(rng, 300, d)
     grid = (20,) * d
-    a = tnc.interp_mat(traj, grid, width=4)
+    a = tnc.interp_mat(traj, grid, width=4, impl="numpy")
     b = jnc.interp_mat(traj, grid, width=4, impl="numpy")
     np.testing.assert_array_equal(a.indptr, b.indptr)
     np.testing.assert_array_equal(a.indices, b.indices)

@@ -35,11 +35,20 @@ def test_import_leaves_jax_out():
             "indigo_tpu_torch.parallel.dist_fft, "
             "indigo_tpu_torch.parallel.e2e, "
             "indigo_tpu_torch.parallel.launch, "
-            "indigo_tpu_torch.parallel.dryrun\n"
+            "indigo_tpu_torch.parallel.dryrun, indigo_tpu_torch.backends, "
+            "indigo_tpu_torch.native, indigo_tpu_torch.profiling, "
+            "indigo_tpu_torch.checkpoint, indigo_tpu_torch.examples, "
+            "indigo_tpu_torch.examples.cartesian_sense_2d, "
+            "indigo_tpu_torch.examples.radial_sense_2d, "
+            "indigo_tpu_torch.examples.multicoil_3d, "
+            "indigo_tpu_torch.examples.cs_wavelet_fista, "
+            "indigo_tpu_torch.examples.serving_pipeline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + GPU_ONLY!r}]\n"
             "print(','.join(bad))\n"
-            "assert 'indigo_tpu_torch.ops._build' not in sys.modules\n")
+            "assert 'indigo_tpu_torch.ops._build' not in sys.modules\n"
+            "from indigo_tpu_torch import native\n"
+            "assert native._lib is None and not native._tried\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

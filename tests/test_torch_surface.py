@@ -57,10 +57,11 @@ OPERATORS = ["Operator", "SpMatrix", "KBInterp", "DenseMatrix", "Diag",
              "CropPad", "Perm", "Product", "Adjoint", "KronI", "BlockDiag",
              "VStack", "HStack", "Scale"]
 TOP = OPERATORS + ["cg", "apgd", "fista", "max_eigen", "soft_thresh", "DWT",
-                   "BlockedELL", "csr_to_bell", "bell_spmm"]
+                   "BlockedELL", "csr_to_bell", "bell_spmm", "get_backend",
+                   "available_backends"]
 SUBMODULES = ["operators", "transforms", "solvers", "sparse", "utils",
               "noncart", "oracle", "models", "wavelet", "toeplitz",
-              "parallel"]
+              "parallel", "backends", "native", "profiling", "checkpoint"]
 
 
 @pytest.mark.parametrize("name", TOP + SUBMODULES)
@@ -154,12 +155,20 @@ def test_tpu_only_knobs_are_accepted(rng):
     from indigo_tpu_torch import noncart as tn
     from indigo_tpu_torch import sparse as ts
     traj = rng.uniform(-0.5, 0.5, size=(40, 2))
+    from indigo_tpu import native as jnat
+    from indigo_tpu_torch import native as tnat
     a = tn.interp_mat(traj, (16, 16), impl="numpy")
     b = jn.interp_mat(traj, (16, 16), impl="numpy")
     assert abs(a - b).max() < 1e-7
-    assert (tn.interp_mat(traj, (16, 16), impl="auto") != a).nnz == 0
-    with pytest.raises(RuntimeError):
-        tn.interp_mat(traj, (16, 16), impl="native")
+    auto = tn.interp_mat(traj, (16, 16), impl="auto")
+    if tnat.available() and jnat.available():
+        assert (auto != jn.interp_mat(traj, (16, 16), impl="auto")).nnz == 0
+    if tnat.available():
+        assert (tn.interp_mat(traj, (16, 16), impl="native") != auto).nnz == 0
+    else:
+        assert (auto != a).nnz == 0
+        with pytest.raises(RuntimeError):
+            tn.interp_mat(traj, (16, 16), impl="native")
     p = rng.permutation(9)
     P = tit.Perm(p, dtype=np.complex64)
     assert P.dtype == torch.complex64

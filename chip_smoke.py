@@ -159,6 +159,22 @@ raises and exits non-zero):
          card, their own asserts inside; K1 must launch in multicoil_3d and
          serving_pipeline, K3 in radial_sense_2d. Their launches are added
          to the kernels line.
+  11. the reference's boundary: the 3D Toeplitz recipe written as a user of
+     the reference writes it, with numpy's default float64 / complex128
+     inputs and no device= anywhere, at 256^3 / 8 coils on the serving
+     kooshball (seed 0). Checks: pipe_menon_dcf and toeplitz_kernel took
+     their device path (their gathers ran on the card, the host gridding
+     matrix was never built; seconds printed); sense_normal_toeplitz(Tf,
+     maps_c128) lives on the card with complex64 / float32 buffers;
+     cg(N, b_c128, maxiter=10) launches K2 (55 launches per solve) and
+     returns complex64 on the card, equal (<= 1e-4) to the same solve built
+     from complex64 tensors with device="cuda" (both timed, and the numpy
+     b's narrowing and copy to the card apart); on the 2D radial lane a bare
+     SpMatrix(G) of the float64 scipy gridding matrix runs K3,
+     set_spmm_impl("jnp") launches no K3 and equals the kernel (<= 1e-5),
+     "auto" restores it; sense_batch_recon(Tf, maps_c128, rhs_c128) runs K1
+     and equals the tree solve (<= 1e-4). Its launches are added to the
+     kernels line.
 After the counted runs, one warm solve of each path runs under
 torch.profiler ([profile] lines: device time by kernel, busy share; for the
 radial solve also K3's share and the launches per CG iteration).
@@ -529,6 +545,7 @@ def small_path_check():
 def phase_main_path():
     import torch
     from indigo_tpu_torch.models import SenseRecon
+    from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
         LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
     from indigo_tpu_torch.utils import rel_err
@@ -543,6 +560,7 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     sense_normal_cuda.launches = 0
     sense_normal_reference.cuda_calls = 0
+    spmm.plain_cuda_calls = 0
     t0 = time.time()
     recon = SenseRecon(traj, maps, oversamp=OVERSAMP, width=WIDTH,
                        iters=ITERS, coil_chunk=COIL_CHUNK, device="cuda")
@@ -602,8 +620,9 @@ def phase_main_path():
     if sense_normal_cuda.launches != (len(ys) * 2 + 1) * per_solve:
         raise AssertionError(f"{sense_normal_cuda.launches} kernel launches "
                              "in the main path")
-    if sense_normal_reference.cuda_calls != 0:
-        raise AssertionError("the plain normal op ran on the GPU")
+    if sense_normal_reference.cuda_calls != 0 or spmm.plain_cuda_calls:
+        raise AssertionError("the plain normal op or a plain SpMM ran on "
+                             "the GPU")
     print(f"[summary] first_s={times[0]:.3f} warm_s="
           f"{','.join(f'{t:.3f}' for t in times[1:])} stream_s_per_acq="
           f"{t_stream:.3f} launches={sense_normal_cuda.launches} "
@@ -1114,7 +1133,7 @@ def tree_recipe(traj, maps, x_true, device, w=None, solves=1,
     t0 = time.time()
     A, plan = sense_nufft_op(traj, maps, oversamp=OVERSAMP, width=WIDTH,
                              device=device)
-    N = sense_normal_toeplitz(Tf, maps).to(device)
+    N = sense_normal_toeplitz(Tf, maps, device=device)
     lap("operator_s", t0)
     wd = torch.from_numpy(np.tile(w[plan.perm], nc).astype(np.float32))
     wd = wd[:, None].to(device)
@@ -1163,6 +1182,7 @@ def phase_tree_path():
     Returns the run's state for the cross-checks and its K2 launch count."""
     import torch
     from indigo_tpu_torch import cg
+    from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
         LAUNCHES_PER_CALL, sense_normal_cuda, toeplitz_apply_cuda,
         toeplitz_apply_reference)
@@ -1189,9 +1209,10 @@ def phase_tree_path():
     if st["launches"] != [per_solve] * 3 or launches != 3 * per_solve:
         raise AssertionError(f"tree path K2 launches {st['launches']}, "
                              f"expected {per_solve} per solve")
-    if toeplitz_apply_reference.cuda_calls or sense_normal_cuda.launches:
-        raise AssertionError("tree path left K2 (plain Toeplitz apply or "
-                             "K1 on the GPU)")
+    if toeplitz_apply_reference.cuda_calls or sense_normal_cuda.launches \
+            or spmm.plain_cuda_calls:
+        raise AssertionError("tree path left K2 (plain Toeplitz apply, K1 "
+                             "or a plain SpMM on the GPU)")
     sec, res = st["sec"], st["resids"]
     x = st["x"].cpu().numpy().reshape(x_true.shape)
     x_clean = st.pop("x_clean").cpu().numpy().reshape(x_true.shape)
@@ -1330,14 +1351,15 @@ def example_float64(P, d, n):
     return A, pinv
 
 
-def cartesian_example_solve(pkg, P, d, x_true, n, lam_posed, place=None):
-    """The example's recipe with package ``pkg`` (``place`` moves the tree):
+def cartesian_example_solve(pkg, P, d, x_true, n, lam_posed, **device):
+    """The example's recipe with package ``pkg`` (``device=``: where the
+    port builds its leaves):
     A = (SpMatrix(P) * UnscaledFFT * Diag(d)).optimize(), y = A x,
     AHA = (A.H * A).optimize(), cg(AHA, A.H y, lamda=1e-6, tol=1e-8,
     maxiter=100); then the same system at ``lam_posed``. Returns the two
     images (numpy), the iterations and AHA."""
-    A = pkg.SpMatrix(P) * pkg.UnscaledFFT((n, n)) * pkg.Diag(d)
-    A = (place(A) if place else A).optimize()
+    A = (pkg.SpMatrix(P, **device) * pkg.UnscaledFFT((n, n), **device)
+         * pkg.Diag(d, **device)).optimize()
     y = A * x_true
     AHA = (A.H * A).optimize()
     rhs = A.H * y
@@ -1390,7 +1412,7 @@ def cartesian_small_check():
     out, read = {}, {}
     for dev in ("cuda", "cpu"):
         x, xr, iters, AHA = cartesian_example_solve(
-            it, P, d, x_true, n, lam, place=lambda A: A.to(dev))
+            it, P, d, x_true, n, lam, device=dev)
         if "SpMatrix" in leaf_kinds(AHA):
             raise AssertionError(f"128^2 example recipe on {dev}: P^H P did "
                                  f"not fuse: {leaf_kinds(AHA)}")
@@ -2354,6 +2376,195 @@ def phase_rest(roofline, serving_s_per_iter, radial):
     return launches
 
 
+class DeviceSpy:
+    """Counts the calls of ``module.name`` by the device of their tensor
+    arguments ("none" for calls with no tensor), while in a ``with``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, {}
+
+    def __enter__(self):
+        import torch
+        self.fn = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            devs = {a.device.type for a in args if torch.is_tensor(a)}
+            key = ",".join(sorted(devs)) or "none"
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def phase_boundary():
+    """Phase 11: the 3D Toeplitz recipe from 64-bit numpy with no device=,
+    the radial lane's bare SpMatrix and set_spmm_impl, and
+    sense_batch_recon from numpy. Returns the K1, K2 and K3 launches."""
+    import torch
+    from indigo_tpu_torch import SpMatrix, cg, noncart, sense_normal_toeplitz
+    from indigo_tpu_torch.models.sense import sense_nufft_op
+    from indigo_tpu_torch.noncart import pipe_menon_dcf
+    from indigo_tpu_torch.ops import set_spmm_impl, spmm, tile_interp
+    from indigo_tpu_torch.ops.dft_cuda import (
+        LAUNCHES_PER_CALL, sense_normal_cuda, toeplitz_apply_cuda,
+        toeplitz_apply_reference)
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+    from indigo_tpu_torch.parallel import sense_batch_recon
+    from indigo_tpu_torch.sparse import jag_to_csr
+    from indigo_tpu_torch.toeplitz import toeplitz_kernel
+    from indigo_tpu_torch.utils import rel_err
+
+    t_phase = time.time()
+    traj = kooshball_traj(NSPOKES, NREAD, seed=SEED)        # float64
+    maps = coil_maps(N, NC, seed=SEED).astype(np.complex128)
+    x_true = phantom(N).astype(np.complex128).ravel()
+    grid = tuple(int(2 * round(s * OVERSAMP / 2)) for s in (N,) * 3)
+    fields = {"shape": f"{N}^3", "nc": NC, "card": repr(card_line())}
+
+    def host_free(key, t0, scatter, host):
+        torch.cuda.synchronize()
+        fields[f"{key}_s"] = f"{time.time() - t0:.3f}"
+        if set(scatter.calls) != {"cuda"} or host.calls:
+            raise AssertionError(f"{key} left its device path: gathers "
+                                 f"{scatter.calls}, host matrix {host.calls}")
+
+    reset_counts()
+    with DeviceSpy(tile_interp, "kb_scatter") as sc, \
+            DeviceSpy(noncart, "interp_mat") as host:
+        t0 = time.time()
+        w = pipe_menon_dcf(traj, grid, width=WIDTH, iters=DCF_ITERS)
+        host_free("dcf", t0, sc, host)
+    with DeviceSpy(tile_interp, "kb_scatter") as sc, \
+            DeviceSpy(noncart, "interp_mat") as host:
+        t0 = time.time()
+        Tf, info = toeplitz_kernel(traj, (N,) * 3, oversamp=OVERSAMP,
+                                   width=WIDTH, weights=w, return_info=True,
+                                   warn=False)
+        host_free("spectrum", t0, sc, host)
+    t0 = time.time()
+    Nop = sense_normal_toeplitz(Tf, maps)
+    bad = [(t.device.type, t.dtype) for t in Nop.buffers()
+           if not (t.is_cuda and t.dtype in (torch.complex64,
+                                             torch.float32))]
+    if bad:
+        raise AssertionError(f"sense_normal_toeplitz from complex128 numpy: "
+                             f"buffers {bad[:3]}")
+    A, plan = sense_nufft_op(traj, maps, oversamp=OVERSAMP, width=WIDTH)
+    y = A * x_true
+    wd = np.tile(w[plan.perm], NC)                        # float32 numpy
+    # the rhs as a user holds it on the host: numpy's complex128
+    b = (A.H * (wd * y.cpu().numpy())).cpu().numpy().astype(np.complex128)
+    del A, y
+    torch.cuda.synchronize()
+    fields["operator_s"] = f"{time.time() - t0:.3f}"
+    lam = max(1e-3, 10.0 ** (1 - WIDTH)) * info["max"]
+    solve_s, k2 = [], []
+    for _ in range(2):
+        before = toeplitz_apply_cuda.launches
+        t0 = time.time()
+        x, cinfo = cg(Nop, b, lamda=lam, tol=0.0, maxiter=ITERS,
+                      history=True)
+        res = cinfo["resids"].cpu().numpy()
+        solve_s.append(time.time() - t0)
+        k2.append(toeplitz_apply_cuda.launches - before)
+    if not (x.is_cuda and x.dtype == torch.complex64):
+        raise AssertionError(f"cg from complex128 numpy: {x.device} "
+                             f"{x.dtype}")
+    if k2 != [LAUNCHES_PER_CALL * (ITERS + 1)] * 2 or \
+            toeplitz_apply_reference.cuda_calls:
+        raise AssertionError(f"cg from numpy: K2 launches {k2}, plain "
+                             f"applies {toeplitz_apply_reference.cuda_calls}")
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise AssertionError(f"cg from numpy: residuals {res}")
+    Nc = sense_normal_toeplitz(torch.from_numpy(Tf).to("cuda"),
+                               torch.from_numpy(maps.astype(np.complex64)
+                                                ).to("cuda"), device="cuda")
+    # the numpy b's narrowing and copy, which each solve from numpy pays
+    t0 = time.time()
+    bc = torch.from_numpy(b.astype(np.complex64)).to("cuda")
+    torch.cuda.synchronize()
+    b_to_card_s = time.time() - t0
+    t0 = time.time()
+    xc, _ = cg(Nc, bc, lamda=lam, tol=0.0, maxiter=ITERS)
+    torch.cuda.synchronize()
+    tensor_solve_s = time.time() - t0
+    err_solve = rel_err(x, xc)
+    del Nc, xc, bc
+    if not err_solve <= PATH_TOL:
+        raise AssertionError(f"cg from complex128 numpy vs complex64 "
+                             f"tensors: rel_err {err_solve:.3e}")
+    fields.update(first_s=f"{solve_s[0]:.3f}", warm_s=f"{solve_s[1]:.3f}",
+                  b_to_card_s=f"{b_to_card_s:.3f}",
+                  complex64_tensor_solve_s=f"{tensor_solve_s:.3f}",
+                  k2_launches=sum(k2), resid_last=f"{res[-1]:.4e}",
+                  rel_err_vs_complex64_tensors=f"{err_solve:.3e}")
+
+    # K1: the batch solver from numpy, against the tree's solve
+    t0 = time.time()
+    before = sense_normal_cuda.launches
+    xs, _ = sense_batch_recon(Tf, maps, b.reshape(1, -1), lamda=lam,
+                              iters=ITERS)
+    torch.cuda.synchronize()
+    k1 = sense_normal_cuda.launches - before
+    err_k1 = rel_err(xs[0], x[:, 0] if x.dim() == 2 else x)
+    if k1 != LAUNCHES_PER_CALL * ITERS or not xs.is_cuda or \
+            not err_k1 <= PATH_TOL:
+        raise AssertionError(f"sense_batch_recon from numpy: K1 launches "
+                             f"{k1}, {xs.device}, vs the tree {err_k1:.3e}")
+    fields.update(batch_s=f"{time.time() - t0:.3f}", k1_launches=k1,
+                  rel_err_batch_vs_tree=f"{err_k1:.3e}")
+    del Nop, xs, x
+    torch.cuda.empty_cache()
+
+    # K3: a bare SpMatrix of the radial lane's gridding matrix (its sorted
+    # samples and tiled columns) as a float64 scipy CSR
+    t0 = time.time()
+    _, _, leaf = gridding_leaf(radial_problem(RADIAL_N, RADIAL_NC)[0])
+    G64 = jag_to_csr(leaf.ell).astype(np.float64)
+    del leaf
+    G = SpMatrix(G64)
+    rng = np.random.default_rng(SEED)
+    xg = (rng.standard_normal((G.shape[1], 2))
+          + 1j * rng.standard_normal((G.shape[1], 2)))      # complex128
+    before = jag_spmm_cuda.launches
+    yk = G * xg
+    k3_kernel = jag_spmm_cuda.launches - before
+    plain = spmm.plain_cuda_calls
+    try:
+        set_spmm_impl("jnp")
+        before = jag_spmm_cuda.launches
+        yp = G * xg
+        k3_jnp = jag_spmm_cuda.launches - before
+    finally:
+        set_spmm_impl("auto")
+    plain = spmm.plain_cuda_calls - plain
+    before = jag_spmm_cuda.launches
+    ya = G * xg
+    torch.cuda.synchronize()
+    k3_auto = jag_spmm_cuda.launches - before
+    err_jnp = rel_err(yp, yk)
+    if not (yk.is_cuda and yk.dtype == torch.complex64 and k3_kernel == 1
+            and k3_jnp == 0 and plain == 1 and k3_auto == 1
+            and err_jnp <= SPMM_TOL and torch.equal(ya, yk)):
+        raise AssertionError(
+            f"bare SpMatrix: {yk.device} {yk.dtype}, K3 launches kernel "
+            f"{k3_kernel} jnp {k3_jnp} auto {k3_auto}, plain calls {plain}, "
+            f"jnp vs kernel {err_jnp:.3e}")
+    fields.update(spmatrix=f"{G.shape[0]}x{G.shape[1]}",
+                  spmatrix_dtype=str(G.dtype).replace("torch.", ""),
+                  k3_launches=k3_kernel + k3_auto,
+                  rel_err_jnp_vs_kernel=f"{err_jnp:.3e}",
+                  spmatrix_s=f"{time.time() - t0:.3f}")
+    del G, yk, yp, ya
+    torch.cuda.empty_cache()
+    log("boundary", t_phase, **fields)
+    return {"k1": k1, "k2": sum(k2), "k3": k3_kernel + k3_auto}
+
+
 def main():
     phase_device()
     phase_build()
@@ -2384,6 +2595,10 @@ def main():
     rest = phase_rest(roofline, serving_s_per_iter, radial)
     launches += rest["k1"]
     k3_launches += rest["k3"]
+    boundary = phase_boundary()
+    launches += boundary["k1"]
+    k2_launches += boundary["k2"]
+    k3_launches += boundary["k3"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

@@ -3,8 +3,11 @@
 The port keeps indigo_tpu's module names and public signatures so each
 counterpart is easy to find; inside it uses PyTorch idiom: operators and
 pipelines are ``nn.Module``s holding their arrays as buffers, complex data
-is native complex64, and the device is explicit. It imports torch, numpy
-and scipy only (never jax, never indigo_tpu).
+is native complex64, and the device is explicit. Its boundary is the
+reference's: host data is narrowed to 32-bit as ``jnp.asarray`` narrows it
+and goes to the card unless ``device=`` names another
+(``utils.as_tensor``). It imports torch, numpy and scipy only (never jax,
+never indigo_tpu).
 
 The slices ported so far:
 

@@ -9,10 +9,11 @@ original indigo's ``get_backend(name)``: an object with operator factories
 Here every name is the one torch backend on one device: a ``Backend`` is
 (name, device), by default the card. Its factories build the port's
 operators on that device, its solvers run there, and its primitives take
-tensors or numpy arrays, move them there, and return tensors (``dot`` and
-``norm2`` return Python numbers, ``copy_to`` numpy). ``csrmm`` applies an
-``SpMatrix``, so a real matrix on the card runs kernel K3 (jag) or K4
-(blocked-ELL).
+tensors or numpy arrays, move them there (host data narrowed to 32-bit by
+``utils.as_tensor``, the port's one boundary rule), and return tensors
+(``dot`` and ``norm2`` return Python numbers, ``copy_to`` numpy).
+``csrmm`` applies an ``SpMatrix``, so a real matrix on the card runs
+kernel K3 (jag) or K4 (blocked-ELL).
 """
 from __future__ import annotations
 
@@ -20,12 +21,9 @@ import numpy as np
 import torch
 
 from . import operators as op, solvers
-from .utils import rand64c, randM
+from .utils import as_tensor, rand64c, randM
 
 __all__ = ["Backend", "get_backend", "available_backends"]
-
-# what the reference's default float32 boundary makes of 64-bit host data
-_NARROW = {torch.float64: torch.float32, torch.complex128: torch.complex64}
 
 
 class Backend:
@@ -37,10 +35,8 @@ class Backend:
         self.device = torch.device("cuda" if device is None else device)
 
     def _on(self, x):
-        """x (tensor or array-like) as a tensor on the backend's device,
-        64-bit floats narrowed to 32-bit as the reference's boundary does."""
-        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-        return t.to(device=self.device, dtype=_NARROW.get(t.dtype, t.dtype))
+        """x (tensor or array-like) as a tensor on the backend's device."""
+        return as_tensor(x, self.device)
 
     def _apply(self, A, X, adjoint=False):
         X = self._on(X)
@@ -50,25 +46,25 @@ class Backend:
 
     # ---- operator factories (reference: b.SpMatrix(...) etc.) ----------
     def SpMatrix(self, A, **kw):
-        return op.SpMatrix(A, **kw).to(self.device)
+        return op.SpMatrix(A, device=self.device, **kw)
 
     def DenseMatrix(self, A, **kw):
-        return op.DenseMatrix(A, **kw).to(self.device)
+        return op.DenseMatrix(A, device=self.device, **kw)
 
     def Diag(self, d, **kw):
-        return op.Diag(d, **kw).to(self.device)
+        return op.Diag(d, device=self.device, **kw)
 
     def UnscaledFFT(self, shape, **kw):
-        return op.UnscaledFFT(shape, **kw)
+        return op.UnscaledFFT(shape, device=self.device, **kw)
 
     def Eye(self, n, **kw):
-        return op.Eye(n, **kw)
+        return op.Eye(n, device=self.device, **kw)
 
     def One(self, shape, **kw):
-        return op.One(shape, **kw)
+        return op.One(shape, device=self.device, **kw)
 
     def CropPad(self, in_shape, out_shape, **kw):
-        return op.CropPad(in_shape, out_shape, **kw).to(self.device)
+        return op.CropPad(in_shape, out_shape, device=self.device, **kw)
 
     def KronI(self, c, A, **kw):
         return op.KronI(c, A, **kw).to(self.device)

@@ -16,10 +16,16 @@ a ``ToeplitzNormal`` leaf and its spectrum, and ``operator_from_reference``
 for a whole operator tree (every operator class of the port, ``DWT``
 included), walked by class name. This module reads the reference objects'
 arrays through numpy only and imports nothing of the reference.
+
+Each function that builds an operator or a format takes ``device`` with
+the port's rule (``utils.as_tensor``): by default the card, and an error
+where there is none; ``device="cpu"`` builds on the host.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .utils import default_device
 
 __all__ = ["state_from_reference_arrays", "sparse_from_reference",
            "spmatrix_from_reference", "toeplitz_from_reference",
@@ -77,9 +83,13 @@ def _host(a):
     return np.asarray(a)
 
 
-def sparse_from_reference(m):
+def sparse_from_reference(m, device=None):
     """The port's BlockedJag / BlockedELL / ElementELL with the arrays of
-    the reference object ``m`` (same class name)."""
+    the reference object ``m`` (same class name), on ``device``."""
+    return _sparse_from_reference(m).to(default_device(device))
+
+
+def _sparse_from_reference(m):
     import torch
 
     from . import sparse
@@ -102,19 +112,20 @@ def sparse_from_reference(m):
     raise TypeError(f"not a reference sparse format: {kind}")
 
 
-def spmatrix_from_reference(op):
+def spmatrix_from_reference(op, device=None):
     """The port's SpMatrix built from a reference SpMatrix's ``ell`` and
-    ``ellH`` tiles (no conversion from CSR on this side)."""
+    ``ellH`` tiles (no conversion from CSR on this side), on ``device``."""
     from .operators import SpMatrix
 
-    ellH = None if op.ellH is None else sparse_from_reference(op.ellH)
-    return SpMatrix(None, name=op._name, _ell=sparse_from_reference(op.ell),
-                    _ellH=ellH)
+    ellH = None if op.ellH is None else _sparse_from_reference(op.ellH)
+    return SpMatrix(None, name=op._name, _ell=_sparse_from_reference(op.ell),
+                    _ellH=ellH, device=default_device(device))
 
 
-def toeplitz_from_reference(op):
+def toeplitz_from_reference(op, device=None):
     """The port's ToeplitzNormal with the spectrum of a reference one
-    (its ``_T``, ``_vol``, ``_method``, ``_name``), under the same method.
+    (its ``_T``, ``_vol``, ``_method``, ``_name``), under the same method,
+    on ``device``.
 
     The reference stores "pallas" as ``pallas_spectrum``: block layout
     transposed to (Y, Z, X). That transpose is undone, then block order
@@ -130,7 +141,8 @@ def toeplitz_from_reference(op):
         T = np.transpose(T, (1, 0, 2))
     if op._method in ("pallas", "dft"):
         T = T[np.ix_(*(np.argsort(block_perm(s)) for s in T.shape))]
-    return ToeplitzNormal(T, op._vol, name=op._name, method=op._method)
+    return ToeplitzNormal(T, op._vol, name=op._name, method=op._method,
+                          device=default_device(device))
 
 
 def _plan_from_reference(p):
@@ -142,9 +154,10 @@ def _plan_from_reference(p):
         sample_perm=getattr(p, "sample_perm", None))
 
 
-def operator_from_reference(op):
+def operator_from_reference(op, device=None):
     """The port's operator tree with the structure and arrays of the
-    reference tree ``op`` (on the host; ``.to(device)`` moves it).
+    reference tree ``op``, on ``device`` (every leaf, those without arrays
+    too).
 
     The tree is walked by class name, so nothing of the reference is
     imported: every combinator is rebuilt around its converted children and
@@ -154,10 +167,12 @@ def operator_from_reference(op):
     from . import operators as O
     from .wavelet import DWT
 
+    device = default_device(device)
     kind = type(op).__name__
     name = getattr(op, "_name", None)
-    conv = operator_from_reference
+    conv = lambda child: operator_from_reference(child, device)  # noqa: E731
     dt = lambda: np.dtype(str(op.dtype))  # noqa: E731
+    on = {"name": name, "device": device}
     if kind == "Product":
         return O.Product(conv(op.left), conv(op.right), name=name)
     if kind == "Adjoint":
@@ -169,36 +184,34 @@ def operator_from_reference(op):
     if kind == "Scale":
         return O.Scale(_host(op.alpha).item(), conv(op.child), name=name)
     if kind == "SpMatrix":
-        return spmatrix_from_reference(op)
+        return spmatrix_from_reference(op, device)
     if kind == "ToeplitzNormal":
-        return toeplitz_from_reference(op)
+        return toeplitz_from_reference(op, device)
     if kind == "KBInterp":
-        return O.KBInterp(_plan_from_reference(op.plan), name=name)
+        return O.KBInterp(_plan_from_reference(op.plan), **on)
     if kind == "GridDFT":
-        return O.GridDFT(_plan_from_reference(op.plan), op.img_shape,
-                         name=name)
+        return O.GridDFT(_plan_from_reference(op.plan), op.img_shape, **on)
     if kind == "CenteredDFT":
-        return O.CenteredDFT(op.img_shape, op.grid_shape, name=name)
+        return O.CenteredDFT(op.img_shape, op.grid_shape, **on)
     if kind == "DenseMatrix":
-        return O.DenseMatrix(np.array(_host(op._A)), name=name)
+        return O.DenseMatrix(np.array(_host(op._A)), **on)
     if kind == "Diag":
-        return O.Diag(np.array(_host(op.payload)), name=name)
+        return O.Diag(np.array(_host(op.payload)), **on)
     if kind == "UnscaledFFT":
-        return O.UnscaledFFT(op.vol_shape, dtype=dt(), name=name)
+        return O.UnscaledFFT(op.vol_shape, dtype=dt(), **on)
     if kind == "Eye":
-        return O.Eye(op.shape[0], dtype=dt(), name=name)
+        return O.Eye(op.shape[0], dtype=dt(), **on)
     if kind == "One":
-        return O.One(op.shape, dtype=dt(), name=name)
+        return O.One(op.shape, dtype=dt(), **on)
     if kind == "CropPad":
-        return O.CropPad(op.in_shape, op.out_shape, dtype=dt(), name=name)
+        return O.CropPad(op.in_shape, op.out_shape, dtype=dt(), **on)
     if kind == "Perm":
-        return O.Perm(np.asarray(op.perm), dtype=dt(), name=name)
+        return O.Perm(np.asarray(op.perm), dtype=dt(), **on)
     if kind == "Mask":
-        return O.Mask(np.asarray(op.keep), op.shape[1], dtype=dt(),
-                      name=name)
+        return O.Mask(np.asarray(op.keep), op.shape[1], dtype=dt(), **on)
     if kind == "DWT":
         return DWT(op.vol_shape, wavelet=op._wavelet, levels=op._levels,
-                   dtype=dt(), name=name, device="cpu")
+                   dtype=dt(), **on)
     raise TypeError(f"not a reference operator the port knows: {kind}")
 
 

@@ -43,7 +43,8 @@ def make_problem(n, accel=2, rng=None):
 def main(n=128, device=None):
     dev = device_of(device)
     P, d, x_true = make_problem(n, rng=0)
-    A = (it.SpMatrix(P) * it.UnscaledFFT((n, n)) * it.Diag(d)).to(dev)
+    A = (it.SpMatrix(P, device=dev) * it.UnscaledFFT((n, n), device=dev)
+         * it.Diag(d, device=dev))
     A = A.optimize()
     print("operator tree:")
     print(A.dump())
@@ -81,7 +82,8 @@ def main(n=128, device=None):
     Fs = np.fft.fftn(np.eye(ns * ns, dtype=np.complex64)
                      .reshape(ns, ns, -1), axes=(0, 1)).reshape(ns * ns, -1)
     Adense = Ps.toarray() @ Fs @ np.diag(ds)
-    As = (it.SpMatrix(Ps) * it.UnscaledFFT((ns, ns)) * it.Diag(ds)).to(dev)
+    As = (it.SpMatrix(Ps, device=dev)
+          * it.UnscaledFFT((ns, ns), device=dev) * it.Diag(ds, device=dev))
     ys = As * xs
     rhs = As.H * ys
     xd = np.linalg.solve(

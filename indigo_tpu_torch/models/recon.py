@@ -122,8 +122,9 @@ class SenseRecon(nn.Module):
         deapod = np.asarray(state["deapod"], np.float32)
         coils = VStack(
             [Diag((deapod * maps[c]).ravel().astype(np.complex64),
-                  name=f"Map{c}") for c in range(nc)], name="Coils")
-        A = KronI(nc, gridding_core(tplan, img_shape),
+                  name=f"Map{c}", device=device) for c in range(nc)],
+            name="Coils")
+        A = KronI(nc, gridding_core(tplan, img_shape, device),
                   name="PerCoil") * coils
         plan = NufftPlan(img_shape, tplan.grid_shape, None, tplan.width,
                          None, np.asarray(state["perm"], np.int64), None,

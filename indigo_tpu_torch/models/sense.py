@@ -3,9 +3,10 @@
 Counterpart of ``indigo_tpu/models/sense.py``: ``centered_fft_op``,
 ``NufftPlan``, ``nufft_op``, ``sense_nufft_op`` and ``cartesian_sense_op``.
 Each function returns its tree on ``device`` (default ``"cuda"``, as
-``SenseRecon``): the geometry is planned on the host, the arrays then move
-to the card, and the solvers run where the tree lives. ``device="cpu"``
-keeps everything on the host.
+``SenseRecon``): the geometry is planned on the host, each leaf builds its
+arrays on ``device``, and the solvers run where the tree lives.
+``device="cpu"`` keeps everything on the host. Host data is narrowed to
+32-bit as every leaf narrows it (``utils.as_tensor``).
 
 Layout conventions (column-batched, like the reference):
   * image vectors are flattened C-order, shape (prod(img_shape), K)
@@ -33,19 +34,20 @@ def centered_fft_op(shape, dtype=np.complex64, device="cuda"):
     The shift diagonals are exact (+-1) float32 checkerboards for even
     dims.
     """
-    din = Diag(checkerboard(shape), name="fftshift_in")
-    dout = Diag(checkerboard(shape, shifted=True), name="fftshift_out")
-    return (dout * UnscaledFFT(shape, dtype=dtype) * din).to(device)
+    din = Diag(checkerboard(shape), name="fftshift_in", device=device)
+    dout = Diag(checkerboard(shape, shifted=True), name="fftshift_out",
+                device=device)
+    return dout * UnscaledFFT(shape, dtype=dtype, device=device) * din
 
 
-def gridding_core(tplan, img_shape):
+def gridding_core(tplan, img_shape, device):
     """G Fc Z for a tile plan with the matmul DFT: one ``GridDFT`` leaf on
     a periodic no-halo tiling, else ``KBInterp * CenteredDFT``."""
     grid = tuple(int(g) for g in tplan.grid_shape)
     if tuple(tplan.ext) == grid:
-        return GridDFT(tplan, img_shape, name="GridDFT")
-    return (KBInterp(tplan, name="Gridding")
-            * CenteredDFT(img_shape, grid, name="PadDFT"))
+        return GridDFT(tplan, img_shape, name="GridDFT", device=device)
+    return (KBInterp(tplan, name="Gridding", device=device)
+            * CenteredDFT(img_shape, grid, name="PadDFT", device=device))
 
 
 @dataclass
@@ -140,7 +142,8 @@ def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
         if tplan.sample_perm is not None:
             perm = perm[tplan.sample_perm]
             traj_s = traj_s[tplan.sample_perm]
-        G = None if fft == "mm" else KBInterp(tplan, name="Gridding")
+        G = (None if fft == "mm"
+             else KBInterp(tplan, name="Gridding", device=device))
     else:
         Gcsr = interp_mat(traj_s, grid_shape, width=width, beta=beta)
         if tile is not None:
@@ -150,24 +153,25 @@ def nufft_op(traj, img_shape, oversamp=1.5, width=4, beta=None, sort=True,
             Gcsr = Gcsr.tocsr(copy=True)
             Gcsr.indices = inv[Gcsr.indices].astype(Gcsr.indices.dtype)
             Gcsr.has_sorted_indices = False
-            chain.append(Perm(cperm, name="GridTiling"))
-        G = SpMatrix(Gcsr, name="Gridding")
+            chain.append(Perm(cperm, name="GridTiling", device=device))
+        G = SpMatrix(Gcsr, name="Gridding", device=device)
     if G is None:
-        A, factors = gridding_core(tplan, img_shape), []
+        A, factors = gridding_core(tplan, img_shape, device), []
     elif fft == "mm":
         A = G
-        factors = chain + [CenteredDFT(img_shape, grid_shape, name="PadDFT")]
+        factors = chain + [CenteredDFT(img_shape, grid_shape, name="PadDFT",
+                                       device=device)]
     else:
         A = G
-        factors = chain + [centered_fft_op(grid_shape, device="cpu"),
-                           CropPad(img_shape, grid_shape, name="Zpad")]
+        factors = chain + [centered_fft_op(grid_shape, device=device),
+                           CropPad(img_shape, grid_shape, name="Zpad",
+                                   device=device)]
     da = deapodization(img_shape, grid_shape, width=width, beta=beta)
     if deapod:
-        factors.append(Diag(da, name="Deapod"))
+        factors.append(Diag(da, name="Deapod", device=device))
     for op in factors:
         A = A * op
     A._name = name
-    A = A.to(device)
     plan = NufftPlan(img_shape, grid_shape, traj_s, width, float(beta),
                      perm, float(oversamp), deapod=da)
     return A, plan
@@ -188,12 +192,12 @@ def sense_nufft_op(traj, maps, oversamp=1.5, width=4, beta=None, sort=True,
     core, plan = nufft_op(traj, img_shape, oversamp=oversamp, width=width,
                           beta=beta, sort=sort, deapod=False, fft=fft,
                           interp=interp, col_tiling=col_tiling,
-                          device="cpu")
+                          device=device)
     coils = VStack(
         [Diag((plan.deapod * maps[c]).ravel().astype(np.complex64),
-              name=f"Map{c}") for c in range(nc)], name="Coils")
-    A = KronI(nc, core, name="PerCoil") * coils
-    return A.to(device), plan
+              name=f"Map{c}", device=device) for c in range(nc)],
+        name="Coils")
+    return KronI(nc, core, name="PerCoil") * coils, plan
 
 
 def cartesian_sense_op(mask, maps, device="cuda"):
@@ -207,9 +211,9 @@ def cartesian_sense_op(mask, maps, device="cuda"):
     maps = np.asarray(maps)
     nc = maps.shape[0]
     img_shape = maps.shape[1:]
-    core = (Mask.from_bool(mask, name="Sampling")
-            * centered_fft_op(img_shape, device="cpu"))
+    core = (Mask.from_bool(mask, name="Sampling", device=device)
+            * centered_fft_op(img_shape, device=device))
     coils = VStack(
-        [Diag(maps[c].ravel().astype(np.complex64), name=f"Map{c}")
-         for c in range(nc)], name="Coils")
-    return (KronI(nc, core, name="PerCoil") * coils).to(device)
+        [Diag(maps[c].ravel().astype(np.complex64), name=f"Map{c}",
+              device=device) for c in range(nc)], name="Coils")
+    return KronI(nc, core, name="PerCoil") * coils

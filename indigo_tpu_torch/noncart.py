@@ -19,6 +19,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .utils import default_device
+
 __all__ = [
     "kaiser_bessel", "beatty_beta", "interp_mat", "deapodization",
     "checkerboard", "sort_trajectory", "tiled_order", "DEFAULT_TILES",
@@ -215,14 +217,19 @@ def pipe_menon_dcf(traj, grid_shape, width=4, beta=None, iters=30,
         minutes at 3D/1M-sample scale.
       'device' — the same fixed point through the KB gather and its
         ``index_add_`` adjoint (``ops/tile_interp.kb_gather``/``kb_scatter``, one
-        column) on ``device`` (default the CPU).
+        column) on ``device``.
       'auto'   — 'device' when ``device`` is a CUDA device and the grid is
         at least 64^3, else 'host' (the reference decides by platform).
+    ``device=None`` is the card (an error where there is none), as the
+    reference takes its device path whenever an accelerator is up;
+    ``device="cpu"`` asks for the host. An explicit ``impl="host"`` needs
+    no device.
     """
     traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
     M = len(traj)
     G_ = tuple(int(g) for g in grid_shape)
-    device = torch.device("cpu" if device is None else device)
+    if impl != "host":
+        device = default_device(device)
     if impl == "auto":
         impl = "device" if (device.type == "cuda"
                             and np.prod(G_) >= 64 ** 3) else "host"

@@ -14,6 +14,15 @@ has shape (M, N) and acts on column-batched complex64 tensors x of shape
 (N, K). The attribute names the rewrite passes read (``left``/``right``,
 ``child``, ``c``, ``alpha``, ``blocks``, ``payload``, ``keep``, ``_name``)
 are the reference's.
+
+Every leaf takes ``device``. A leaf that holds arrays builds them there
+(``utils.as_tensor``): host data goes to the card unless ``device`` names
+another, 64-bit host floats are narrowed to 32-bit as the reference's
+boundary narrows them, and a leaf built from tensors stays on their device
+unless ``device`` is given. A leaf without arrays (``UnscaledFFT``,
+``Eye``, ``One``, ``CropPad``) records a given ``device``; a numpy operand
+of a tree goes to the tree's device, and to the card for a tree that holds
+no arrays and records none.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from torch import nn
 
 from .sparse import (ElementELL, csr_to_bell, csr_to_element, csr_to_jag,
                      element_spmm, estimate_jag_bytes)
+from .utils import as_tensor, default_device
 
 __all__ = [
     "Operator",
@@ -90,6 +100,14 @@ class Operator(nn.Module):
             return t.device
         return None
 
+    def _record_device(self, device):
+        """An array-less leaf built with ``device`` keeps it in an empty,
+        non-persistent buffer (``.to()`` moves it, ``state_dict`` leaves it
+        out), so that its tree has a device."""
+        if device is not None:
+            self.register_buffer("_where", torch.empty(0, device=device),
+                                 persistent=False)
+
     def apply(self, x, adjoint=False):
         """x (N, K) -> y (M, K); adjoint applies A^H."""
         raise NotImplementedError
@@ -135,9 +153,11 @@ class Operator(nn.Module):
         return out[:, 0] if was_vec else out
 
     def _operand(self, x):
-        """(x as a 2-D tensor on the operator's device, was it 1-D)."""
+        """(x as a 2-D tensor, was it 1-D): a tensor as it is, host data
+        through ``utils.as_tensor`` to the operator's device (the card for
+        a tree without one)."""
         if not torch.is_tensor(x):
-            x = torch.as_tensor(np.asarray(x), device=self.device)
+            x = as_tensor(x, device=self.device)
         return (x[:, None], True) if x.dim() == 1 else (x, False)
 
     @property
@@ -204,7 +224,8 @@ class Operator(nn.Module):
     def to_dense(self):
         """Materialise as a dense matrix by applying to the identity
         (tests)."""
-        eye = torch.eye(self.shape[1], dtype=self.dtype, device=self.device)
+        eye = torch.eye(self.shape[1], dtype=self.dtype,
+                        device=default_device(self.device))
         return self.apply(eye)
 
     def extra_repr(self):
@@ -229,9 +250,10 @@ class SpMatrix(Operator):
     MAX_TILE_BYTES = 1 << 30
 
     def __init__(self, A, name=None, bm=8, bn=128, format="auto",
-                 _ell=None, _ellH=None):
+                 _ell=None, _ellH=None, device=None):
         super().__init__(name)
         if _ell is None:
+            device = default_device(device)
             A = sp.csr_matrix(A)
             if format == "auto":
                 est = (estimate_jag_bytes(A, bm, bn)
@@ -247,6 +269,8 @@ class SpMatrix(Operator):
                 raise ValueError(f"SpMatrix: unknown format {format!r}")
         self._ell = _ell
         self._ellH = _ellH
+        if device is not None:
+            self.to(device)
 
     @property
     def shape(self):
@@ -294,15 +318,16 @@ class KBInterp(Operator):
     folds back periodically, as the reference's untiling does.
     """
 
-    def __init__(self, plan, name=None):
+    def __init__(self, plan, name=None, device=None):
         from .ops.tile_interp import kb_patches
 
         super().__init__(name)
         self._plan = plan
         self._grid = tuple(int(g) for g in plan.grid_shape)
+        device = default_device(device)
         corner, wkb = kb_patches(plan)
-        self.register_buffer("corner", torch.from_numpy(corner))
-        self.register_buffer("wkb", torch.from_numpy(wkb))
+        self.register_buffer("corner", as_tensor(corner, device))
+        self.register_buffer("wkb", as_tensor(wkb, device))
 
     @property
     def plan(self):
@@ -343,9 +368,9 @@ class DenseMatrix(Operator):
     """Dense matrix leaf: buffer ``A`` (m, n); full-f32 products (TF32
     off), as the reference's ``precision="highest"``."""
 
-    def __init__(self, A, name=None):
+    def __init__(self, A, name=None, device=None):
         super().__init__(name)
-        A = torch.as_tensor(np.asarray(A) if not torch.is_tensor(A) else A)
+        A = as_tensor(A, device)
         if A.dim() != 2:
             raise ValueError("DenseMatrix expects a 2D array")
         self.register_buffer("A", A)
@@ -381,10 +406,9 @@ class Diag(Operator):
     """Diagonal operator (coil maps, deapodization, FFT shifts): buffer
     ``d`` (n,)."""
 
-    def __init__(self, d, name=None):
+    def __init__(self, d, name=None, device=None):
         super().__init__(name)
-        d = torch.as_tensor(np.asarray(d) if not torch.is_tensor(d) else d)
-        self.register_buffer("d", d.reshape(-1))
+        self.register_buffer("d", as_tensor(d, device).reshape(-1))
 
     @property
     def shape(self):
@@ -419,10 +443,12 @@ class UnscaledFFT(Operator):
     front before the transform, so every transformed axis is contiguous.
     """
 
-    def __init__(self, vol_shape, dtype=torch.complex64, name=None):
+    def __init__(self, vol_shape, dtype=torch.complex64, name=None,
+                 device=None):
         super().__init__(name)
         self._vol = tuple(int(s) for s in vol_shape)
         self._dtype = _as_dtype(dtype)
+        self._record_device(device)
 
     @property
     def vol_shape(self):
@@ -466,7 +492,7 @@ class CenteredDFT(Operator):
     with the fftshift checkerboards and the pad offset folded in.
     """
 
-    def __init__(self, img_shape, grid_shape, name=None):
+    def __init__(self, img_shape, grid_shape, name=None, device=None):
         from .ops.dft_fft import centered_pad_dft_mat
 
         super().__init__(name)
@@ -479,11 +505,12 @@ class CenteredDFT(Operator):
                 raise ValueError("img_shape must fit inside grid_shape")
             if g % 2:
                 raise ValueError("centered FFT requires even grid dims")
+        device = default_device(device)
         for d, (n, g) in enumerate(zip(self._img, self._grid)):
             m = centered_pad_dft_mat(n, g)
-            self.register_buffer(f"mf{d}", torch.from_numpy(m))
+            self.register_buffer(f"mf{d}", as_tensor(m, device))
             self.register_buffer(
-                f"mi{d}", torch.from_numpy(np.ascontiguousarray(m.conj().T)))
+                f"mi{d}", as_tensor(np.ascontiguousarray(m.conj().T), device))
 
     @property
     def img_shape(self):
@@ -538,7 +565,7 @@ class GridDFT(CenteredDFT):
     take ``KBInterp * CenteredDFT`` (``models.sense.nufft_op``).
     """
 
-    def __init__(self, plan, img_shape, name=None):
+    def __init__(self, plan, img_shape, name=None, device=None):
         from .ops.tile_interp import kb_patches
 
         grid = tuple(int(g) for g in plan.grid_shape)
@@ -547,11 +574,12 @@ class GridDFT(CenteredDFT):
                 "GridDFT requires the periodic no-halo tiling "
                 f"(plan.ext == grid_shape), got ext={plan.ext} "
                 f"grid={grid}; use KBInterp * CenteredDFT instead")
-        super().__init__(img_shape, grid, name)
+        device = default_device(device)
+        super().__init__(img_shape, grid, name, device)
         self._width = plan.width
         corner, wkb = kb_patches(plan)
-        self.register_buffer("corner", torch.from_numpy(corner))
-        self.register_buffer("wkb", torch.from_numpy(wkb))
+        self.register_buffer("corner", as_tensor(corner, device))
+        self.register_buffer("wkb", as_tensor(wkb, device))
 
     @property
     def shape(self):
@@ -586,10 +614,11 @@ class GridDFT(CenteredDFT):
 class Eye(Operator):
     """Identity."""
 
-    def __init__(self, n, dtype=torch.complex64, name=None):
+    def __init__(self, n, dtype=torch.complex64, name=None, device=None):
         super().__init__(name)
         self._n = int(n)
         self._dtype = _as_dtype(dtype)
+        self._record_device(device)
 
     @property
     def shape(self):
@@ -610,10 +639,12 @@ class One(Operator):
     """All-ones (M, N) matrix: every output row is the column sum of x
     (the reference's coil-combination "sum" stage)."""
 
-    def __init__(self, shape, dtype=torch.complex64, name=None):
+    def __init__(self, shape, dtype=torch.complex64, name=None,
+                 device=None):
         super().__init__(name)
         self._shape = (int(shape[0]), int(shape[1]))
         self._dtype = _as_dtype(dtype)
+        self._record_device(device)
 
     @property
     def shape(self):
@@ -641,13 +672,14 @@ class Perm(Operator):
     gridding SpMM (``noncart.tiled_order``); both directions are gathers.
     """
 
-    def __init__(self, perm, dtype=torch.complex64, name=None):
+    def __init__(self, perm, dtype=torch.complex64, name=None, device=None):
         super().__init__(name)
+        device = default_device(device)
         perm = np.asarray(perm, dtype=np.int64)
         inv = np.empty_like(perm)
         inv[perm] = np.arange(len(perm))
-        self.register_buffer("p", torch.from_numpy(perm))
-        self.register_buffer("ip", torch.from_numpy(inv))
+        self.register_buffer("p", as_tensor(perm, device))
+        self.register_buffer("ip", as_tensor(inv, device))
         self._dtype = _as_dtype(dtype)
 
     @property
@@ -680,24 +712,26 @@ class Mask(Operator):
     writes meet and the result is deterministic without atomics.
     """
 
-    def __init__(self, keep, n, dtype=torch.complex64, name=None):
+    def __init__(self, keep, n, dtype=torch.complex64, name=None,
+                 device=None):
         super().__init__(name)
+        device = default_device(device)
         keep = np.asarray(keep).ravel().astype(np.int64)
         n = int(n)
         if keep.size and (keep.min() < 0 or keep.max() >= n):
             raise ValueError("keep indices out of range")
         if len(np.unique(keep)) != len(keep):
             raise ValueError("keep indices must be unique")
-        self.register_buffer("_keep", torch.from_numpy(keep))
+        self.register_buffer("_keep", as_tensor(keep, device))
         self._n = n
         self._dtype = _as_dtype(dtype)
 
     @classmethod
-    def from_bool(cls, mask, dtype=torch.complex64, name=None):
+    def from_bool(cls, mask, dtype=torch.complex64, name=None, device=None):
         """Build from a boolean array over the grid (any shape)."""
         mask = np.asarray(mask)
         return cls(np.flatnonzero(mask.ravel()), mask.size, dtype=dtype,
-                   name=name)
+                   name=name, device=device)
 
     @property
     def shape(self):
@@ -728,7 +762,7 @@ class CropPad(Operator):
     shape (prod(out_shape), prod(in_shape))."""
 
     def __init__(self, in_shape, out_shape, dtype=torch.complex64,
-                 name=None):
+                 name=None, device=None):
         super().__init__(name)
         self._in = tuple(int(s) for s in in_shape)
         self._out = tuple(int(s) for s in out_shape)
@@ -738,6 +772,7 @@ class CropPad(Operator):
             if a > b:
                 raise ValueError("in_shape must fit inside out_shape")
         self._dtype = _as_dtype(dtype)
+        self._record_device(device)
 
     @property
     def in_shape(self):

@@ -17,6 +17,15 @@ On CPU tensors they run ``sense_normal_reference`` and
 ``toeplitz_apply_reference``, the plain torch versions, which are also what
 the kernels are compared with on the card. The kernels are built on first
 use (``ops/_build.py``), never at import.
+
+The reference's sigma-basis helpers (``uses_sigma_basis``,
+``solver_sigma_axes``, ``to_sigma_basis``, ``from_sigma_basis``) are here
+with its semantics, as index permutations of tensors: its kernels work in
+an even | odd block order on every axis longer than 128, and its solvers
+may hold their state in that order. The CUDA kernels work in natural
+order, so the port uses the basis only at its boundary
+(``parallel.sense_normal_batched(sigma=True)``,
+``ToeplitzNormal.sigma_basis``).
 """
 from __future__ import annotations
 
@@ -30,7 +39,9 @@ from .dft_fft import block_spectrum, toeplitz_apply_block
 __all__ = ["kernel_spectrum", "supported", "sense_normal_reference",
            "sense_normal_cuda", "toeplitz_apply_reference",
            "toeplitz_apply_cuda", "fft_factors", "fft_table",
-           "fft_positions", "four_step", "LAUNCHES_PER_CALL"]
+           "fft_positions", "four_step", "LAUNCHES_PER_CALL",
+           "uses_sigma_basis", "solver_sigma_axes", "to_sigma_basis",
+           "from_sigma_basis"]
 
 LAUNCHES_PER_CALL = 5  # kernel launches per sense_normal_cuda / K2 call
 
@@ -51,6 +62,50 @@ def supported(shape) -> bool:
     if len(shape) != 3:
         return False
     return all(s % 8 == 0 and 8 <= s <= 256 for s in shape)
+
+
+def uses_sigma_basis(shape) -> bool:
+    """True when the reference's kernels would hold this volume in the
+    sigma basis: 3D with an axis longer than 128."""
+    return len(shape) == 3 and any(int(s) > 128 for s in shape)
+
+
+def _sigma_axes(shape):
+    """The axes that the sigma basis reorders: those longer than 128."""
+    return tuple(i for i, s in enumerate(shape) if int(s) > 128)
+
+
+def solver_sigma_axes(img_shape, lead=1):
+    """The sigma axes of a batched (lead, *img_shape) array."""
+    return tuple(lead + ax for ax in _sigma_axes(img_shape))
+
+
+def _sigma_order(n):
+    return np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)])
+
+
+def to_sigma_basis(a, img_axes):
+    """Reorder ``img_axes`` of ``a`` from natural order to the sigma basis
+    (the even entries, then the odd ones)."""
+    from ..utils import as_tensor
+
+    a = as_tensor(a)
+    for ax in img_axes:
+        idx = torch.from_numpy(_sigma_order(a.shape[ax])).to(a.device)
+        a = a.index_select(ax, idx)
+    return a
+
+
+def from_sigma_basis(a, img_axes):
+    """Reorder ``img_axes`` of ``a`` from the sigma basis back to natural
+    order (the inverse of :func:`to_sigma_basis`)."""
+    from ..utils import as_tensor
+
+    a = as_tensor(a)
+    for ax in img_axes:
+        idx = torch.from_numpy(np.argsort(_sigma_order(a.shape[ax])))
+        a = a.index_select(ax, idx.to(a.device))
+    return a
 
 
 def sense_normal_reference(Tf, maps, v):

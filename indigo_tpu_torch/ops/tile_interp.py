@@ -263,19 +263,22 @@ def kb_scatter(corner, wkb, grid_shape, x, chunk=None):
     return torch.view_as_complex(out).reshape((K,) + grid_shape)
 
 
-def tile_interp_apply(plan, x, adjoint=False, chunk=None):
+def tile_interp_apply(plan, x, adjoint=False, chunk=None, device=None):
     """Apply the gridding interpolation G of a tile plan (or its adjoint),
     with the reference's signature and layouts.
 
     Forward: x (N, K) grid -> (M, K) samples. Adjoint: x (M, K) samples ->
-    (N, K) grid. x is a tensor (the result lives on its device) or a numpy
-    array; a real x gives a real result. A call-compatibility entry: it
+    (N, K) grid. x is a tensor (the result lives on its device) or host
+    data (narrowed and put on ``device``, by default the card:
+    ``utils.as_tensor``); a real x gives a real result. A
+    call-compatibility entry: it
     derives the plan's patches and moves them to x's device on every call.
     Operators hold the patches as buffers and call :func:`kb_gather` /
     :func:`kb_scatter` directly.
     """
-    if not torch.is_tensor(x):
-        x = torch.as_tensor(np.asarray(x))
+    from ..utils import as_tensor
+
+    x = as_tensor(x, device)
     corner, wkb = (torch.from_numpy(a).to(x.device)
                    for a in kb_patches(plan))
     K = x.shape[1]

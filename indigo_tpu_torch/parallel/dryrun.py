@@ -48,7 +48,7 @@ def recon_at_grid(traj, maps, y, grid_shape, oversamp=1.25, width=4,
     beta = beatty_beta(width, oversamp)
     w = _dcf_weights(dcf, traj, img, grid_shape, width, beta, device)
     G = GridDFT(plan_tile_interp(traj, grid_shape, width=width, beta=beta),
-                img).to(device)
+                img, device=device)
     wy = torch.from_numpy(np.ascontiguousarray(
         (w[None] * np.asarray(y).reshape(nc, -1)).T, np.complex64))
     u = G.apply(wy.to(device), adjoint=True)                  # (n, nc)
@@ -99,7 +99,8 @@ def dryrun_ranks(n_devices, device):
     S, nc, n = 2 * sl, 2 * coil, 8
     traj = rng.random((40, 2)) - 0.5
     maps = rand64c(nc, n, n, rng=rng)
-    Tf = toeplitz_kernel(traj, (n, n), oversamp=2.0, width=4, warn=False)
+    Tf = toeplitz_kernel(traj, (n, n), oversamp=2.0, width=4, warn=False,
+                         device=place)
     rhs = rand64c(S, n * n, rng=rng)
     xs, resids = sense_batch_recon(Tf, maps, rhs, mesh=mesh, lamda=1.0,
                                    iters=3)
@@ -120,7 +121,8 @@ def dryrun_ranks(n_devices, device):
     img3 = (2 * n_devices, 2 * n_devices, 8)
     traj3 = rng.random((100, 3)) - 0.5
     maps3 = rand64c(2, *img3, rng=rng)
-    Tf3 = toeplitz_kernel(traj3, img3, oversamp=2.0, width=4, warn=False)
+    Tf3 = toeplitz_kernel(traj3, img3, oversamp=2.0, width=4, warn=False,
+                          device=place)
     lam3 = 0.05 * float(np.abs(Tf3).max())
     rhs3 = rand64c(*img3, rng=rng)
     mesh_v = make_mesh(device=dev, vol=n_devices)

@@ -21,9 +21,9 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
+from ..utils import as_tensor, common_device
 from .collectives import all_to_all, psum
 from .mesh import Placement
 
@@ -46,13 +46,18 @@ def _block_layout(Tf):
 
 
 def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
-                         sigma=False):
+                         sigma=False, device=None):
     """Batched Toeplitz SENSE normal op.
 
     Tf:   (*2N) float32 spectrum, stored as ``layout`` says
     maps: (nc, *N) complex64 coil maps
     xs:   (S, n) complex64 — S flattened slice images
     returns (S, n).
+
+    Tensors or host data: host data is narrowed and goes to ``device``, by
+    default the device of the tensors given, else the card
+    (``utils.common_device``: an error where there is none). Tensors move
+    only to a ``device`` given; on two devices without one they raise.
 
     ``layout``: how Tf is stored and which pipeline runs.
       "raw" (default, as in the reference): natural frequency order, what
@@ -71,23 +76,32 @@ def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
         (``ops/toeplitz_fft.py``), kept as a cross-check.
     ``coil_chunk`` processes the coils in chunks of this size (snapped to a
     divisor of nc), bounding the doubled-grid working set; the chunks are a
-    Python loop of one normal-op call each. ``sigma`` is the reference's
-    TPU-only basis switch: False is accepted, True raises (the CUDA kernel
-    works in natural order).
+    Python loop of one normal-op call each.
+
+    ``sigma`` (layout "kernel"/"pallas", as in the reference): xs' image
+    axes longer than 128 are in the sigma basis (``ops.dft_cuda.
+    to_sigma_basis``) and the result is returned in it. The reference's
+    kernels work in that basis; K1 works in natural order, so xs is
+    reordered to natural order, K1 runs, and the result is reordered back.
     """
-    if sigma:
-        raise NotImplementedError(
-            "sense_normal_batched(sigma=True): the sigma basis is a TPU "
-            "kernel contract; the CUDA kernel takes natural-order volumes")
     if layout == "pallas":
         layout = "kernel"
-    from ..ops.dft_cuda import sense_normal_cuda, sense_normal_reference
+    if sigma and layout != "kernel":
+        raise ValueError("the sigma basis is a kernel-layout contract "
+                         f"(layout 'kernel' or 'pallas'), got {layout!r}")
+    from ..ops.dft_cuda import (from_sigma_basis, sense_normal_cuda,
+                                sense_normal_reference, solver_sigma_axes,
+                                to_sigma_basis)
     from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
 
+    dev = common_device(Tf, maps, xs, device=device)
+    Tf, maps, xs = (as_tensor(a, dev) for a in (Tf, maps, xs))
     img_shape = tuple(maps.shape[1:])
     nc = maps.shape[0]
     S = xs.shape[0]
     v = xs.reshape((S,) + img_shape)
+    sig = solver_sigma_axes(img_shape) if sigma else ()
+    v = from_sigma_basis(v, sig)
 
     if layout == "raw":
         Tf = _block_layout(Tf)
@@ -119,7 +133,7 @@ def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
         for c0 in range(0, nc, coil_chunk):
             part = chunk_contrib(maps[c0:c0 + coil_chunk])
             out = part if out is None else out + part
-    return out.reshape(S, -1).to(xs.dtype)
+    return to_sigma_basis(out, sig).reshape(S, -1).to(xs.dtype)
 
 
 def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
@@ -203,13 +217,8 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
     return x, resids
 
 
-def _tensor(a, device, dtype):
-    a = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
-    return a.to(device=device, dtype=dtype)
-
-
 def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
-                      coil_chunk=None):
+                      coil_chunk=None, device=None):
     """Many-slice SENSE recon: CG on the batched normal op, on one device
     or sharded over a mesh.
 
@@ -222,7 +231,9 @@ def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
     plain pipeline (``"block"``). Returns (xs (S, n), resids (iters, S))
     tensors.
 
-    ``mesh=None``: everything on ``maps``' device (the CPU for numpy maps).
+    ``mesh=None``: everything on ``device``, by default the device of the
+    tensors given, else the card (``utils.common_device``: an error where
+    there is none, and tensors on two devices raise rather than move).
     ``mesh`` (axes 'slice' and 'coil'; every rank calls with the same global
     arrays): maps are cut over 'coil', rhs over 'slice', the spectrum is
     replicated; each rank runs the whole CG on its (slice, coil) block on
@@ -233,14 +244,14 @@ def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
     from ..ops.dft_cuda import supported
 
     if mesh is None:
-        dev = maps.device if torch.is_tensor(maps) else torch.device("cpu")
-        maps = _tensor(maps, dev, torch.complex64)
-        rhs = _tensor(rhs, dev, torch.complex64)
+        dev = common_device(Tf, maps, rhs, device=device)
+        maps = as_tensor(maps, dev, torch.complex64)
+        rhs = as_tensor(rhs, dev, torch.complex64)
     else:
         dev = mesh.device
         maps = Placement(mesh, ("coil",)).local(maps, torch.complex64)
         rhs = Placement(mesh, ("slice",)).local(rhs, torch.complex64)
-    Tb = _block_layout(_tensor(Tf, dev, torch.float32)).contiguous()
+    Tb = _block_layout(as_tensor(Tf, dev, torch.float32)).contiguous()
     img_shape = tuple(maps.shape[1:])
     layout = ("kernel" if dev.type == "cuda" and supported(img_shape)
               else "block")

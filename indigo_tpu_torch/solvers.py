@@ -9,7 +9,9 @@ until the caller reads the result. A solve runs where its tensors live,
 and on the card when it is handed none: a numpy operand, or the start
 vector of ``max_eigen``, goes to ``device`` if that is given, else to the
 operator's device, else (a matvec callable, an operator without arrays) to
-``"cuda"``. ``device="cpu"`` asks for the host.
+the card, and raises where there is none. ``device="cpu"`` asks for the
+host. Host data is narrowed to 32-bit (float64 -> float32, complex128 ->
+complex64) as the reference's boundary narrows it (``utils.as_tensor``).
 
 ``cg`` and ``max_eigen`` accept an
 :class:`~indigo_tpu_torch.operators.Operator` or a plain matvec callable
@@ -17,10 +19,10 @@ and treat their operands as one long vector for inner products.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .operators import Operator
+from .utils import as_tensor, default_device
 
 __all__ = ["cg", "apgd", "fista", "max_eigen", "soft_thresh"]
 
@@ -44,19 +46,17 @@ def _vdot(a, b):
 
 def _place(A, device):
     """Where a solve that was handed no tensor runs."""
-    if device is not None:
-        return torch.device(device)
-    own = A.device if isinstance(A, Operator) else None
-    return own if own is not None else torch.device("cuda")
+    if device is None and isinstance(A, Operator):
+        device = A.device
+    return default_device(device)
 
 
 def _operand(x, A, device, dtype=None):
-    """x as a tensor: a tensor moves only to an explicit ``device``, a
-    numpy array goes where :func:`_place` says."""
+    """x as a tensor: a tensor moves only to an explicit ``device``, host
+    data goes where :func:`_place` says, narrowed (``utils.as_tensor``)."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=dtype)
-    x = torch.as_tensor(np.asarray(x), device=_place(A, device))
-    return x.to(dtype=dtype)
+    return as_tensor(x, _place(A, device), dtype)
 
 
 def _norm(a):
@@ -128,8 +128,12 @@ def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
     return x, info
 
 
-def soft_thresh(x, lamda):
-    """Complex soft-thresholding: the prox of lamda * ||.||_1."""
+def soft_thresh(x, lamda, device=None):
+    """Complex soft-thresholding: the prox of lamda * ||.||_1.
+
+    ``x``: a tensor (the result stays on its device) or host data (narrowed
+    and put on ``device``, by default the card: ``utils.as_tensor``)."""
+    x = as_tensor(x, device)
     mag = x.abs()
     scale = torch.clamp(mag - lamda, min=0.0) / torch.clamp(mag, min=1e-30)
     return (scale * x).to(x.dtype)

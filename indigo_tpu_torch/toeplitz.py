@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .operators import Diag, KronI, Operator, VStack
+from .operators import Diag, KronI, Operator, Perm, VStack
+from .utils import as_tensor, common_device, default_device
 
 __all__ = ["toeplitz_kernel", "ToeplitzNormal", "sense_normal_toeplitz"]
 
@@ -33,6 +34,10 @@ def toeplitz_kernel(traj, img_shape, oversamp=1.5, width=5, weights=None,
     gridding (torch ``index_add_``) and the FFTs (``torch.fft``) on
     ``device``; 'auto' picks 'device' when ``device`` is a CUDA device and
     the doubled oversampled grid is large (>= 64^3), else 'host'.
+    ``device=None`` is the card (an error where there is none), as the
+    reference takes its device path whenever an accelerator is up;
+    ``device="cpu"`` asks for the host. An explicit ``impl="host"`` needs
+    no device.
     """
     from .noncart import beatty_beta
 
@@ -43,8 +48,8 @@ def toeplitz_kernel(traj, img_shape, oversamp=1.5, width=5, weights=None,
     M = len(np.atleast_2d(traj))
     w = np.ones(M, np.complex64) if weights is None else \
         np.asarray(weights, np.complex64).ravel()
-    device = torch.device(device) if device is not None else \
-        torch.device("cpu")
+    if impl != "host":
+        device = default_device(device)
     if impl == "auto":
         impl = "device" if (device.type == "cuda"
                             and np.prod(grid2) >= 64 ** 3) else "host"
@@ -140,12 +145,15 @@ class ToeplitzNormal(Operator):
     built, the device is decided by the input tensor at apply time: the
     module moves with ``.to()``, and a CPU tensor never launches a kernel.
 
-    ``Tf`` is the raw spectrum (numpy, 2x the image shape). "pallas" and
-    "dft" store it in ``kernel_spectrum`` order (the same array as
-    ``block_spectrum``), "fft" as it is; the buffer is ``T``.
+    ``Tf`` is the raw spectrum (numpy or a tensor, 2x the image shape).
+    "pallas" and "dft" store it in ``kernel_spectrum`` order (the same
+    array as ``block_spectrum``), "fft" as it is; the buffer is ``T``, on
+    ``device``: by default the card for a numpy ``Tf`` (an error where
+    there is none) and ``Tf``'s own device for a tensor.
     """
 
-    def __init__(self, Tf, img_shape, name=None, method="auto"):
+    def __init__(self, Tf, img_shape, name=None, method="auto",
+                 device=None):
         from .ops.dft_cuda import kernel_spectrum, supported
 
         super().__init__(name)
@@ -158,13 +166,16 @@ class ToeplitzNormal(Operator):
             raise ValueError(
                 "the pallas method needs a 3D volume with dims that are "
                 f"multiples of 8 in [8, 256], got {self._vol}")
+        if torch.is_tensor(Tf):
+            device = Tf.device if device is None else device
+            Tf = Tf.detach().cpu().numpy()
         Tf = np.asarray(Tf, dtype=np.float32)
         if Tf.shape != tuple(2 * s for s in self._vol):
             raise ValueError(f"Tf shape {Tf.shape} is not 2x {self._vol}")
         if method != "fft":
             Tf = kernel_spectrum(Tf)  # host-side, once
-        self.register_buffer(
-            "T", torch.from_numpy(np.require(Tf, requirements=["C", "W"])))
+        self.register_buffer("T", as_tensor(np.ascontiguousarray(Tf),
+                                            device))
         self._method = method
 
     @property
@@ -221,27 +232,50 @@ class ToeplitzNormal(Operator):
         return self._describe()
 
     def sigma_basis(self):
-        """(self, None) always: the port has no sigma basis.
+        """(K_sigma, P) with K == P.H * K_sigma * P, as the reference.
 
-        The reference returns a conjugated (K_sigma, P) pair for radix
-        (> 128) axes on its Pallas path, a workaround for Mosaic's missing
-        interleaving relayouts. The CUDA kernel runs every n <= 256 in
-        natural order, so there is nothing to conjugate; the call is kept
-        so that solver code written for the reference runs unchanged.
+        On the "pallas" method of a volume with radix (> 128) axes
+        (``ops.dft_cuda.uses_sigma_basis``), P is the ``Perm`` that takes
+        natural order to the sigma basis (even | odd blocks on each such
+        axis) and K_sigma = P K P^H shares this operator's spectrum:
+
+            Ks, P = K.sigma_basis()
+            x, info = cg(Ks, P * b, ...)
+            x = P.H * x
+
+        Elsewhere it returns (self, None). The reference's kernels work in
+        the sigma basis and K_sigma saves it a reorder per apply; the CUDA
+        kernel works in natural order, so here K_sigma is the product
+        P * K * P.H (two gathers of the volume per apply). The pair exists
+        so that solver code written for the reference runs unchanged and
+        gives the same answers.
         """
-        return self, None
+        from .ops.dft_cuda import _sigma_axes, to_sigma_basis
+
+        axes = _sigma_axes(self._vol) if self._method == "pallas" else ()
+        if not axes:
+            return self, None
+        n = int(np.prod(self._vol))
+        idx = to_sigma_basis(torch.arange(n).reshape(self._vol), axes)
+        P = Perm(idx.ravel(), name="SigmaBasis", device=self.T.device)
+        return P * self * P.H, P
 
 
-def sense_normal_toeplitz(Tf, maps):
+def sense_normal_toeplitz(Tf, maps, device=None):
     """A^H A for multi-coil SENSE via the Toeplitz kernel:
     sum_c Diag(m_c)^H . Toep . Diag(m_c) as an operator tree. ``KronI``
     folds the coils into the column batch, so one ToeplitzNormal apply (one
-    K2 launch triple on the GPU) serves every coil."""
-    maps = np.asarray(maps)
+    K2 launch triple on the GPU) serves every coil.
+
+    ``Tf`` and ``maps`` (nc, *img): numpy (narrowed, maps to complex64) or
+    tensors. The operator lives on ``device``, by default the device of the
+    tensors given, else the card (``utils.common_device``: an error where
+    there is none; tensors on two devices raise rather than move)."""
+    dev = common_device(Tf, maps, device=device)
+    maps = as_tensor(maps, dev, dtype=torch.complex64)
     nc = maps.shape[0]
-    img_shape = maps.shape[1:]
-    T = ToeplitzNormal(Tf, img_shape, name="Toeplitz")
-    coils = VStack(
-        [Diag(maps[c].ravel().astype(np.complex64), name=f"Map{c}")
-         for c in range(nc)], name="Coils")
+    img_shape = tuple(maps.shape[1:])
+    T = ToeplitzNormal(Tf, img_shape, name="Toeplitz", device=dev)
+    coils = VStack([Diag(maps[c].reshape(-1), name=f"Map{c}")
+                    for c in range(nc)], name="Coils")
     return coils.H * KronI(nc, T, name="PerCoil") * coils

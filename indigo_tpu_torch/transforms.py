@@ -28,6 +28,7 @@ from .operators import (
 )
 from .sparse import bell_to_csr, jag_to_csr, element_to_csr, BlockedJag, \
     ElementELL
+from .utils import as_tensor
 
 __all__ = [
     "Visitor", "Transform",
@@ -130,7 +131,7 @@ class DistributeKronIOverProduct(Transform):
         if isinstance(A, KronI):
             return KronI(c * A.c, A.child)
         if isinstance(A, Eye):
-            return Eye(c * A.shape[0], dtype=A.dtype)
+            return Eye(c * A.shape[0], dtype=A.dtype, device=A.device)
         return KronI(c, A)
 
 
@@ -243,20 +244,20 @@ def _to_scipy(node):
 
 def _from_scipy(m, like_dtype, device=None):
     """Build the cheapest leaf representing a host scipy matrix, on
-    ``device`` (None: the host)."""
+    ``device``: the device of the tree it replaces (None: that tree holds
+    no arrays, and the leaf goes to the card, as a numpy operand of such a
+    tree would)."""
     m = m.tocsr()
     M, N = m.shape
     npdt = _np_dtype(like_dtype)
-    leaf = None
     if M == N:
         d = m.diagonal()
         if m.nnz == np.count_nonzero(d) and (m - sp.diags(d)).nnz == 0:
             if np.allclose(d, 1):
-                return Eye(N, dtype=like_dtype)
-            leaf = Diag(d.astype(npdt))
-    if leaf is None:
-        leaf = SpMatrix(m.astype(npdt))
-    return leaf if device is None else leaf.to(device)
+                return Eye(N, dtype=like_dtype, device=device)
+            # the tree's own dtype, which may be 64-bit if its tensors are
+            return Diag(as_tensor(d, device, dtype=like_dtype))
+    return SpMatrix(m.astype(npdt), device=device)
 
 
 def _device(*nodes):

@@ -1,8 +1,15 @@
-"""Utility helpers: random test data, relative error, timing.
+"""Utility helpers: random test data, relative error, timing, and the
+port's boundary.
 
 Counterpart of ``indigo_tpu/utils/__init__.py`` (``rand64c``, ``randM``,
 ``Timer``, ``rel_err``). ``rel_err`` works on numpy arrays and on torch
 tensors (moved to the host first); the random helpers draw with numpy.
+
+:func:`as_tensor` and :func:`default_device` are where user data becomes
+tensors in every entry point of the port. They hold the reference's
+boundary: host float64 / complex128 data is narrowed to float32 /
+complex64, as ``jnp.asarray`` does in JAX's default 32-bit mode, and host
+data goes to the card unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -10,8 +17,64 @@ import time
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 __all__ = ["rand64c", "randM", "Timer", "rel_err"]
+
+# what the reference's 32-bit boundary makes of 64-bit host data
+NARROW = {np.dtype(np.float64): np.dtype(np.float32),
+          np.dtype(np.complex128): np.dtype(np.complex64)}
+
+
+def default_device(device=None):
+    """``device`` as a ``torch.device``; None means the card. Raises when
+    it means the card and there is none: the port never falls back to the
+    host on its own, ``device="cpu"`` asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the host")
+    return torch.device("cuda")
+
+
+def common_device(*xs, device=None):
+    """Where a call on ``xs`` runs: ``device`` if given, else the one
+    device of the tensors among ``xs`` (a ValueError if they lie on two:
+    nothing is moved on its own), else the card (:func:`default_device`)."""
+    if device is not None:
+        return torch.device(device)
+    devs = {x.device for x in xs if torch.is_tensor(x)}
+    if len(devs) > 1:
+        raise ValueError(f"tensors on {sorted(map(str, devs))}: pass "
+                         "device= to move them to one device")
+    return devs.pop() if devs else default_device()
+
+
+def as_tensor(x, device=None, dtype=None):
+    """A tensor or host data (numpy, scipy sparse, lists, Python scalars)
+    as a tensor, by the reference's boundary rule.
+
+    A tensor keeps its dtype and device unless ``dtype`` / ``device`` are
+    given. Host data is narrowed (float64 -> float32, complex128 ->
+    complex64; integer and bool arrays keep their dtype, which torch
+    indexing takes) unless ``dtype`` is given, and goes to ``device``:
+    by default the card, and an error where there is none
+    (:func:`default_device`).
+    """
+    if torch.is_tensor(x):
+        if device is None and dtype is None:
+            return x
+        return x.to(device=device, dtype=dtype)
+    dev = default_device(device)
+    a = x.toarray() if sp.issparse(x) else np.asarray(x)
+    if dtype is None:
+        a = a.astype(NARROW.get(a.dtype, a.dtype), copy=False)
+    if not a.flags.writeable:
+        a = a.copy()
+    # cast on the host, so that only the narrow data crosses to the card
+    return torch.as_tensor(a).to(dtype=dtype).to(dev)
 
 
 def rand64c(*shape, rng=None):

@@ -19,6 +19,7 @@ import torch
 
 from .operators import Operator, _as_dtype
 from .ops.dft_fft import full_f32_matmul
+from .utils import as_tensor, default_device
 
 __all__ = ["DWT", "WAVELETS"]
 
@@ -77,12 +78,14 @@ class DWT(Operator):
     shape (N, N) with N = prod(vol_shape); forward = analysis,
     adjoint = synthesis (exact inverse). Buffers ``w{level}_{axis}`` hold
     the (s >> level)-point analysis matrix of each level and axis, on
-    ``device`` (default the card, as the model functions).
+    ``device`` (default the card, and an error where there is none, as
+    every leaf; ``utils.as_tensor``).
     """
 
     def __init__(self, vol_shape, wavelet="db4", levels=None,
-                 dtype=torch.complex64, name=None, device="cuda"):
+                 dtype=torch.complex64, name=None, device=None):
         super().__init__(name)
+        device = default_device(device)
         self._vol = tuple(int(s) for s in vol_shape)
         self._wavelet = wavelet
         h = WAVELETS[wavelet]
@@ -99,9 +102,8 @@ class DWT(Operator):
             for ax, s in enumerate(self._vol):
                 self.register_buffer(
                     f"w{lv}_{ax}",
-                    torch.from_numpy(_analysis_matrix(s >> lv, h)))
+                    as_tensor(_analysis_matrix(s >> lv, h), device))
         self._dtype = _as_dtype(dtype)
-        self.to(device)
 
     @property
     def vol_shape(self):

@@ -54,7 +54,7 @@ def _rows(mod, op):
 @pytest.mark.parametrize("kind", ["dense", "cartesian", "sparse", "tile"])
 def test_memusage_rows_equal_the_reference(rng, kind):
     A = _trees(rng)[kind]
-    T = convert.operator_from_reference(A)
+    T = convert.operator_from_reference(A, device="cpu")
     jr, tr = _rows(ja, A), _rows(ta, T)
     assert [(n, tuple(s)) for n, s, _ in tr] == \
         [(n, tuple(s)) for n, s, _ in jr]
@@ -78,7 +78,7 @@ def test_memusage_rows_equal_the_reference(rng, kind):
                                         ("cartesian", 2), ("sparse", 3)])
 def test_apply_cost_equals_the_reference(rng, kind, ncols):
     A = _trees(rng)[kind]
-    T = convert.operator_from_reference(A)
+    T = convert.operator_from_reference(A, device="cpu")
     jf, jb = ja.apply_cost(A, ncols)
     tf, tb = ta.apply_cost(T, ncols)
     assert (tf, tb) == T.cost(ncols)

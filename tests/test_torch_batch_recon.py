@@ -86,7 +86,7 @@ def test_sense_batch_recon_matches_reference(rng, coil_chunk):
     xr, rr = j_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12,
                            coil_chunk=coil_chunk)
     xp, rp = sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam,
-                               iters=12, coil_chunk=coil_chunk)
+                               iters=12, coil_chunk=coil_chunk, device="cpu")
     assert xp.shape == (1, rhs.shape[1]) and rp.shape == (12, 1)
     assert rel_err(xp, np.asarray(xr)) < 1e-4
     assert rel_err(rp, np.asarray(rr)) < 1e-4
@@ -106,10 +106,11 @@ def test_sense_batch_recon_mesh_solves(rng, tmp_path):
     try:
         mesh = make_mesh(device="cpu", slice=1, coil=1)
         xm, rm = sense_batch_recon(Tf, maps, rhs, mesh=mesh, lamda=lam,
-                                   iters=12)
+                                   iters=12, device="cpu")
     finally:
         dist.destroy_process_group()
-    x0, r0 = sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12)
+    x0, r0 = sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12,
+                               device="cpu")
     xr, _ = j_batch_recon(Tf, maps, rhs, mesh=None, lamda=lam, iters=12)
     assert xm.shape == (1, rhs.shape[1]) and rm.shape == (12, 1)
     assert torch.equal(xm, x0) and torch.equal(rm, r0)

@@ -57,7 +57,7 @@ def test_cartesian_sense_op(rng, shape, nc):
     assert rel_err(A.H * y,
                    oracle.cartesian_sense_adjoint(y, mask, maps)) < TOL
     # the converted reference tree is the same operator
-    conv = operator_from_reference(ref)
+    conv = operator_from_reference(ref, device="cpu")
     assert rel_err(conv * x, A * x) < 1e-6
 
 
@@ -152,8 +152,9 @@ def test_example_recipe_against_the_reference(rng):
         np.complex64).ravel()
     x_true = rand64c(n * n, rng=rng)
     out = {}
-    for key, pkg in (("ref", jit_), ("port", tit)):
-        A = (pkg.SpMatrix(P) * pkg.UnscaledFFT((n, n)) * pkg.Diag(d))
+    for key, pkg, kw in (("ref", jit_, {}), ("port", tit, {"device": "cpu"})):
+        A = (pkg.SpMatrix(P, **kw) * pkg.UnscaledFFT((n, n), **kw)
+             * pkg.Diag(d, **kw))
         A = A.optimize()
         y = A * x_true
         AHA = (A.H * A).optimize()
@@ -190,9 +191,10 @@ def test_example_recipe_at_its_own_lamda_differs_only_in_the_null_space():
     x_mn = pinv(y64)
     assert rel_err(A64(x_mn), y64) < 1e-12
     img, posed, read = {}, {}, {}
-    for key, pkg in (("port", tit), ("reference", jit_)):
+    for key, pkg, kw in (("port", tit, {"device": "cpu"}),
+                         ("reference", jit_, {})):
         img[key], posed[key], iters, _ = cs.cartesian_example_solve(
-            pkg, P, d, x_true, n, lam)
+            pkg, P, d, x_true, n, lam, **kw)
         r = read[key] = cs.range_part(img[key], y64, x_mn, A64, pinv)
         print(f"{key}: iters={iters} data_consistency={r['dc']:.3e} "
               f"norm_over_range_part={r['ratio']:.1f} "

@@ -42,7 +42,7 @@ def test_roundtrip(tmp_path, rng):
 def test_resume_cg(tmp_path, rng):
     """CG resumed from a checkpointed x equals uninterrupted CG."""
     A, _, b = _spd(24, rng)
-    Aop = tit.DenseMatrix(A)
+    Aop = tit.DenseMatrix(A, device="cpu")
     x_full, _ = tit.cg(Aop, b, tol=1e-10, maxiter=60)
     x_half, info = tit.cg(Aop, b, tol=1e-10, maxiter=30)
     p = save_state(os.path.join(tmp_path, "cg.npz"),
@@ -99,7 +99,8 @@ def test_the_reference_reads_a_file_the_port_wrote(tmp_path, rng):
     A, _, b = _spd(12, rng)
     Aop = jit_.DenseMatrix(A)
     x_full, _ = jit_.cg(Aop, b, tol=1e-10, maxiter=40)
-    x_half, _ = tit.cg(tit.DenseMatrix(A), b, tol=1e-10, maxiter=20)
+    x_half, _ = tit.cg(tit.DenseMatrix(A, device="cpu"), b, tol=1e-10,
+                       maxiter=20)
     p = save_state(os.path.join(tmp_path, "cg.npz"), {"x": x_half})
     x0 = jc.load_state(p, like={"x": np.zeros(12, np.complex64)})["x"]
     x_res, _ = jit_.cg(Aop, b, x0=x0.astype(np.complex64), tol=1e-10,
@@ -108,7 +109,7 @@ def test_the_reference_reads_a_file_the_port_wrote(tmp_path, rng):
 
 
 def test_an_operator_is_not_state(tmp_path, rng):
-    op = tit.Diag(rand64c(4, rng=rng))
+    op = tit.Diag(rand64c(4, rng=rng), device="cpu")
     with pytest.raises(TypeError, match="state_dict"):
         save_state(os.path.join(tmp_path, "op.npz"), {"A": op})
     p = save_state(os.path.join(tmp_path, "sd.npz"), dict(op.state_dict()))

@@ -135,8 +135,8 @@ def test_toeplitz_normal_on_cuda_runs_the_kernel(cuda):
     Tf = rng.standard_normal(tuple(2 * s for s in img)).astype(np.float32)
     maps = rand64c(nc, *img, rng=rng)
     x = torch.from_numpy(rand64c(int(np.prod(img)), 2, rng=rng))
-    K = ToeplitzNormal(Tf, img)
-    N = sense_normal_toeplitz(Tf, maps)
+    K = ToeplitzNormal(Tf, img, device="cpu")
+    N = sense_normal_toeplitz(Tf, maps, device="cpu")
     ref_k, ref_n = K * x, N * x
     K, N = K.to(cuda), N.to(cuda)
     plain = toeplitz_apply_reference.cuda_calls
@@ -147,6 +147,55 @@ def test_toeplitz_normal_on_cuda_runs_the_kernel(cuda):
     assert toeplitz_apply_reference.cuda_calls == plain
     assert rel_err(out_k, ref_k) < 1e-4
     assert rel_err(out_n, ref_n) < 1e-4
+
+
+def test_toeplitz_cg_from_64bit_numpy_runs_k2(cuda):
+    """The reference user's recipe: float64 / complex128 numpy and no
+    device anywhere. The tree builds on the card with complex64 buffers,
+    cg runs K2 (5 launches per apply, maxiter + 1 applies) and equals the
+    solve built from complex64 tensors on the card (1e-4)."""
+    from indigo_tpu_torch import cg
+    from indigo_tpu_torch.ops.dft_cuda import toeplitz_apply_cuda
+    from indigo_tpu_torch.toeplitz import sense_normal_toeplitz
+
+    rng = np.random.default_rng(11)
+    img, nc, iters = (32, 32, 32), 4, 6
+    Tf = np.abs(rng.standard_normal(tuple(2 * s for s in img))) + 0.5
+    maps = (rng.standard_normal((nc,) + img)
+            + 1j * rng.standard_normal((nc,) + img))
+    b = rng.standard_normal(32 ** 3) + 1j * rng.standard_normal(32 ** 3)
+    N = sense_normal_toeplitz(Tf, maps)
+    assert all(t.is_cuda and t.dtype in (torch.complex64, torch.float32)
+               for t in N.buffers())
+    before = toeplitz_apply_cuda.launches
+    x, _ = cg(N, b, lamda=0.1, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    assert toeplitz_apply_cuda.launches - before == \
+        LAUNCHES_PER_CALL * (iters + 1)
+    assert x.is_cuda and x.dtype == torch.complex64
+    N32 = sense_normal_toeplitz(
+        torch.from_numpy(Tf.astype(np.float32)).to(cuda),
+        torch.from_numpy(maps.astype(np.complex64)).to(cuda), device=cuda)
+    x32, _ = cg(N32, torch.from_numpy(b.astype(np.complex64)).to(cuda),
+                lamda=0.1, tol=0.0, maxiter=iters)
+    assert rel_err(x, x32) < 1e-4
+
+
+def test_card_tensor_never_runs_on_the_host(cuda):
+    """A card tensor times an operator built on the host raises, and so do
+    batch inputs on two devices: nothing moves the work to the CPU."""
+    import indigo_tpu_torch as tit
+    from indigo_tpu_torch.parallel.recon import sense_normal_batched
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rand64c(40, 2, rng=rng)).to(cuda)
+    for op in (tit.Diag(rand64c(40, rng=rng), device="cpu"),
+               tit.DenseMatrix(rand64c(30, 40, rng=rng), device="cpu")):
+        with pytest.raises(RuntimeError):
+            op * x
+    T, m, v = _inputs(rng, (8, 8, 8), 1, 2, cuda)
+    with pytest.raises(ValueError):
+        sense_normal_batched(T, m, v.reshape(1, -1).cpu(), layout="kernel")
 
 
 # ---- block-sparse SpMM kernels K3 (jag) and K4 (blocked-ELL) -------------
@@ -225,6 +274,33 @@ def test_spmm_dispatch_complex_x(cuda):
              torch.from_numpy(x).to(cuda))
     assert spmm.plain_cuda_calls == plain + 1
     assert rel_err(y, Ac @ x) < 1e-5
+
+
+def test_set_spmm_impl_jnp_launches_no_k3(cuda):
+    """'auto' and 'pallas' run K3; 'jnp', set or passed per call, runs the
+    plain version, counted, and launches no K3; all agree (1e-5)."""
+    from indigo_tpu_torch.ops import set_spmm_impl, spmm
+    from indigo_tpu_torch.ops.ell_spmm import jag_spmm_cuda
+    from indigo_tpu_torch.sparse import csr_to_jag
+
+    rng = np.random.default_rng(13)
+    A = _sparse(rng, 64, 256, 0.05)
+    Aj = csr_to_jag(A).to(cuda)
+    x = rand64c(256, 3, rng=rng)
+    xd = torch.from_numpy(x).to(cuda)
+    cases = (("auto", None, 1, 0), ("jnp", None, 0, 1),
+             ("pallas", None, 1, 0), ("auto", "jnp", 0, 1))
+    try:
+        for impl, per_call, k3, plain in cases:
+            set_spmm_impl(impl)
+            k3_0, plain_0 = jag_spmm_cuda.launches, spmm.plain_cuda_calls
+            y = spmm(Aj, xd, impl=per_call)
+            torch.cuda.synchronize()
+            assert (jag_spmm_cuda.launches - k3_0,
+                    spmm.plain_cuda_calls - plain_0) == (k3, plain), impl
+            assert rel_err(y, A @ x) < 1e-5, impl
+    finally:
+        set_spmm_impl("auto")
 
 
 def test_spmm_kernels_reject_what_they_do_not_take(cuda):
@@ -348,17 +424,17 @@ def _new_leaves(rng):
     from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
 
     traj = rng.uniform(-0.5, 0.5, size=(300, 3))
-    A = tit.DenseMatrix(rand64c(24, 30, rng=rng))
-    B = tit.DenseMatrix(rand64c(24, 18, rng=rng))
+    A = tit.DenseMatrix(rand64c(24, 30, rng=rng), device="cpu")
+    B = tit.DenseMatrix(rand64c(24, 18, rng=rng), device="cpu")
     return {
         "UnscaledFFT": tit.UnscaledFFT((12, 10, 8)),
         "CropPad": tit.CropPad((6, 8, 10), (8, 8, 16)),
-        "Mask": tit.Mask(rng.permutation(500)[:200], 500),
+        "Mask": tit.Mask(rng.permutation(500)[:200], 500, device="cpu"),
         "Eye": tit.Eye(40),
         "One": tit.One((30, 20)),
         "DenseMatrix": A,
         "KBInterp_halo": tit.KBInterp(plan_tile_interp(
-            traj, (20, 20, 20), width=4, beta=6.5)),
+            traj, (20, 20, 20), width=4, beta=6.5), device="cpu"),
         "BlockDiag": tit.BlockDiag([A, B]),
         "HStack": tit.HStack([A, B]),
         "DWT": tit.DWT((16, 32, 16), "db4", levels=1, device="cpu"),
@@ -437,7 +513,8 @@ def test_optimize_keeps_the_tree_on_its_device(cuda):
     # a fused SpMatrix leaf lands on the card too (and runs K3 there)
     import scipy.sparse as sp
     S = sp.random(40, 50, density=0.2, random_state=3, dtype=np.float32)
-    tree = (tit.Diag(rand64c(40, rng=rng).real.copy()) * tit.SpMatrix(S))
+    tree = (tit.Diag(rand64c(40, rng=rng).real.copy(), device="cpu")
+            * tit.SpMatrix(S, device="cpu"))
     out = tree.to(cuda).optimize()
     assert isinstance(out, tit.SpMatrix)
     assert all(b.is_cuda for b in out.buffers())
@@ -494,7 +571,8 @@ def ranks_share_the_card(seed):
     n, nc = 16, 4
     traj = rng.random((400, 3)) - 0.5
     maps = torch.from_numpy(rand64c(nc, n, n, n, rng=rng)).cuda()
-    Tf = toeplitz_kernel(traj, (n, n, n), oversamp=2.0, width=6, warn=False)
+    Tf = toeplitz_kernel(traj, (n, n, n), oversamp=2.0, width=6, warn=False,
+                         device="cpu")
     lam = 0.05 * float(np.abs(Tf).max())
     rhs = torch.from_numpy(rand64c(2, n ** 3, rng=rng)).cuda()
     mesh = make_mesh(slice=1, coil=2)

@@ -53,14 +53,14 @@ def test_device_on_cpu_tensors_matches_host(rng, case):
 
 def test_radial_weights_ramp_and_auto_is_host_off_cuda():
     traj = _radial_2d()
-    w = noncart.pipe_menon_dcf(traj, (48, 48), width=4, iters=25)
+    w = noncart.pipe_menon_dcf(traj, (48, 48), width=4, iters=25, device="cpu")
     np.testing.assert_array_equal(
         w, noncart.pipe_menon_dcf(traj, (48, 48), width=4, iters=25,
                                   impl="host"))
     w = w.reshape(16, 32)
     assert (w[:, 28] > 2 * w[:, 16]).all()   # |k| = 0.375 vs DC
     with pytest.raises(ValueError):
-        noncart.pipe_menon_dcf(traj, (48, 48), impl="gpu")
+        noncart.pipe_menon_dcf(traj, (48, 48), impl="gpu", device="cpu")
 
 
 def _kooshball(nspokes, nread, seed=0):

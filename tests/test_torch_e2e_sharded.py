@@ -253,7 +253,7 @@ def run_2d():
     img[8:24, 10:22] = 1.0
     y = np.stack([rec1.simulate(np.roll(img, 2 * s, axis=0)).reshape(nc, -1)
                   for s in range(S)])                       # (S, nc, M)
-    w = pipe_menon_dcf(traj, (64, 64), width=4)
+    w = pipe_menon_dcf(traj, (64, 64), width=4, device="cpu")
     y_pm = rand64c(1, nc, len(traj), rng=rng)
     out = run(ranks_2d, traj, maps, y, w, y_pm)
     return dict(traj=traj, maps=maps, y=y, rec1=rec1, out=out, y_pm=y_pm, n=n)

@@ -39,7 +39,7 @@ def _spd(n, rng):
 def test_max_eigen(rng):
     A = _spd(20, rng)
     want = float(np.linalg.eigvalsh(A).max())
-    lam = tit.max_eigen(tit.DenseMatrix(A), 20, iters=200)
+    lam = tit.max_eigen(tit.DenseMatrix(A, device="cpu"), 20, iters=200)
     assert lam.dim() == 0 and not lam.is_complex()
     assert abs(float(lam) - want) / want < 1e-2
     ref = float(jit_.max_eigen(jit_.DenseMatrix(A), 20, iters=200).real)

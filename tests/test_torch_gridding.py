@@ -72,7 +72,7 @@ def _grid_dft_pair(rng, img, oversamp, M=250):
     traj = rng.uniform(-0.5, 0.5, size=(M, len(img)))
     tp = tti.plan_tile_interp(traj, grid, width=4, beta=6.5)
     jp = jti.plan_tile_interp(traj, grid, width=4, beta=6.5)
-    return GridDFT(tp, img), JGridDFT(jp, img)
+    return GridDFT(tp, img, device="cpu"), JGridDFT(jp, img)
 
 
 @pytest.mark.parametrize("img,oversamp", [((16, 16, 16), 2.0),
@@ -95,7 +95,7 @@ def test_sense_chain_adjointness(rng, img, oversamp):
     A, _ = _grid_dft_pair(rng, img, oversamp)
     n = int(np.prod(img))
     maps = rand64c(2, n, rng=rng)
-    S = KronI(2, A) * VStack([Diag(m) for m in maps])
+    S = KronI(2, A) * VStack([Diag(m, device="cpu") for m in maps])
     x = torch.from_numpy(rand64c(n, 1, rng=rng))
     y = torch.from_numpy(rand64c(S.shape[0], 1, rng=rng))
     lhs = torch.vdot(y[:, 0], (S * x)[:, 0])
@@ -109,4 +109,4 @@ def test_grid_dft_requires_periodic_tiling(rng):
     traj = rng.uniform(-0.5, 0.5, size=(50, 3))
     tp = tti.plan_tile_interp(traj, (20, 20, 20), width=4)
     with pytest.raises(ValueError, match="periodic"):
-        GridDFT(tp, (16, 16, 16))
+        GridDFT(tp, (16, 16, 16), device="cpu")

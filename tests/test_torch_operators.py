@@ -76,7 +76,7 @@ KINDS = ["fft1", "fft2", "fft3", "croppad2", "croppad3", "mask", "mask_bool",
 @pytest.mark.parametrize("kind", KINDS)
 def test_operator_matches_reference(rng, kind):
     ref = _leaf(kind, rng)
-    op = operator_from_reference(ref)
+    op = operator_from_reference(ref, device="cpu")
     assert type(op).__name__ == type(ref).__name__
     assert op.shape == tuple(ref.shape)
     x = rand64c(ref.shape[1], 3, rng=rng)
@@ -98,9 +98,10 @@ def test_own_constructors_match_reference(rng):
     ref = (jit_.DenseMatrix(M) * jit_.Mask(keep, 30)
            * jit_.UnscaledFFT((5, 6), dtype=np.complex64) * jit_.Diag(d)
            * jit_.CropPad((4, 5), (5, 6), dtype=np.complex64).H.H)
-    op = (tit.DenseMatrix(M) * tit.Mask(keep, 30)
-          * tit.UnscaledFFT((5, 6), dtype=np.complex64) * tit.Diag(d)
-          * tit.CropPad((4, 5), (5, 6), dtype=np.complex64).H.H)
+    op = (tit.DenseMatrix(M, device="cpu") * tit.Mask(keep, 30, device="cpu")
+          * tit.UnscaledFFT((5, 6), dtype=np.complex64, device="cpu")
+          * tit.Diag(d, device="cpu")
+          * tit.CropPad((4, 5), (5, 6), dtype=np.complex64, device="cpu").H.H)
     x = rand64c(20, 2, rng=rng)
     y = rand64c(12, 2, rng=rng)
     assert rel_err(op * x, np.asarray(ref * x)) < TOL
@@ -108,27 +109,27 @@ def test_own_constructors_match_reference(rng):
 
 
 def test_unscaled_fft_normal_is_n_times_identity(rng):
-    F = tit.UnscaledFFT((4, 6))
+    F = tit.UnscaledFFT((4, 6), device="cpu")
     x = torch.from_numpy(rand64c(24, 2, rng=rng))
     assert rel_err(F.H * (F * x), 24 * x) < TOL
 
 
 def test_mask_adjoint_zero_fills_and_rejects_duplicates(rng):
     keep = np.array([7, 2, 5])
-    P = tit.Mask(keep, 9)
+    P = tit.Mask(keep, 9, device="cpu")
     y = torch.from_numpy(rand64c(3, 2, rng=rng))
     full = P.H * y
     assert torch.equal(full[keep], y)
     rest = np.setdiff1d(np.arange(9), keep)
     assert torch.count_nonzero(full[rest]) == 0
     with pytest.raises(ValueError):
-        tit.Mask([1, 1, 2], 5)
+        tit.Mask([1, 1, 2], 5, device="cpu")
     with pytest.raises(ValueError):
-        tit.Mask([1, 9], 5)
+        tit.Mask([1, 9], 5, device="cpu")
 
 
 def test_adjoint_of_adjoint_unwraps(rng):
-    A = tit.DenseMatrix(rand64c(3, 4, rng=rng))
+    A = tit.DenseMatrix(rand64c(3, 4, rng=rng), device="cpu")
     assert A.H.H is A
     assert tit.Adjoint(tit.Adjoint(A)) is A
     B = copy.deepcopy(A.H)      # an Adjoint must survive a deep copy
@@ -146,7 +147,7 @@ def _sense_like(rng):
 
 def test_to_dense_dump_memusage_eval(rng):
     ref = _sense_like(rng)
-    op = operator_from_reference(ref)
+    op = operator_from_reference(ref, device="cpu")
     assert rel_err(op.to_dense(), np.asarray(ref.to_dense())) < TOL
     # the same tree, node for node: names and shapes of every line
     strip = lambda s: [ln.split(">")[0] for ln in s.splitlines()]  # noqa
@@ -154,7 +155,8 @@ def test_to_dense_dump_memusage_eval(rng):
     # memusage counts every buffer of the tree once
     assert op.memusage() == sum(b.numel() * b.element_size()
                                 for b in op.buffers())
-    d = tit.Diag(rand64c(6, rng=rng)) * tit.DenseMatrix(rand64c(6, 4, rng=rng))
+    d = (tit.Diag(rand64c(6, rng=rng), device="cpu")
+         * tit.DenseMatrix(rand64c(6, 4, rng=rng), device="cpu"))
     assert d.memusage() == 8 * (6 + 24)
     x = rand64c(ref.shape[1], 2, rng=rng)
     y = rand64c(ref.shape[0], 2, rng=rng)
@@ -168,7 +170,7 @@ def test_to_dense_dump_memusage_eval(rng):
 
 def test_dtype_follows_reference(rng):
     ref = _sense_like(rng)
-    op = operator_from_reference(ref)
+    op = operator_from_reference(ref, device="cpu")
 
     def walk(a, b):
         assert str(a.dtype).replace("torch.", "") == np.dtype(b.dtype).name
@@ -181,7 +183,7 @@ def test_module_surface_on_a_tree_with_spmatrix(rng):
     """children() is the operator meaning; .to(), .train(), .eval() and
     state_dict() still reach every registered sub-module, the SpMatrix's
     sparse formats included."""
-    op = operator_from_reference(_sense_like(rng))
+    op = operator_from_reference(_sense_like(rng), device="cpu")
     kinds = [type(c).__name__ for c in op.children()]
     assert kinds == ["KronI", "VStack"]
     sp_leaf = op.left.child.left
@@ -206,7 +208,8 @@ def test_module_surface_on_a_tree_with_spmatrix(rng):
     keys = set(op.state_dict())
     assert "right.blocks.0.d" in keys
     assert any(k.startswith("left.child.left._ell.") for k in keys)
-    fresh = operator_from_reference(_sense_like(np.random.default_rng(5)))
+    fresh = operator_from_reference(_sense_like(np.random.default_rng(5)),
+                                    device="cpu")
     x = torch.from_numpy(rand64c(op.shape[1], 1, rng=rng))
     assert rel_err(fresh * x, op * x) > 1e-2
     fresh.load_state_dict(op.state_dict())
@@ -222,6 +225,6 @@ def test_scipy_csr_roundtrip_of_zpad(rng):
     from indigo_tpu_torch import noncart as tn
     a, b = tn.zpad_mat((4, 5), (6, 8)), jn.zpad_mat((4, 5), (6, 8))
     assert (a != b).nnz == 0 and a.dtype == b.dtype
-    Z = tit.CropPad((4, 5), (6, 8))
+    Z = tit.CropPad((4, 5), (6, 8), device="cpu")
     x = rand64c(20, 2, rng=rng)
     assert rel_err(Z * x, sp.csr_matrix(a) @ x) == 0.0

@@ -282,7 +282,7 @@ def ranks_batch(Tf, maps, xs):
     mesh = make_mesh(device="cpu", slice=4, coil=2)
     kw = dict(lamda=1.0, iters=15)
     x, res = sense_batch_recon(Tf, maps, xs, mesh=mesh, **kw)
-    x0, res0 = sense_batch_recon(Tf, maps, xs, mesh=None, **kw)
+    x0, res0 = sense_batch_recon(Tf, maps, xs, mesh=None, device="cpu", **kw)
     xc, _ = sense_batch_recon(Tf, maps, xs, mesh=mesh, coil_chunk=1, **kw)
     # tensors go in as numpy does
     xt, _ = sense_batch_recon(torch.from_numpy(Tf), torch.from_numpy(maps),
@@ -369,13 +369,13 @@ def ranks_volume(Tf, maps, rhs, lam, Tf8, maps8, rhs8, lam8):
                              iters=12)
     out["x"], out["res"] = host(x), host(res)
     x0, _ = sense_batch_recon(Tf, maps, rhs.reshape(1, -1), lamda=lam,
-                              iters=12)
+                              iters=12, device="cpu")
     out["x0"] = host(x0)[0]
     # the 8^3 volume both decompositions take
     xs, rs = sense_vol_recon(Tf8, maps8, rhs8, slab, lamda=lam8, iters=6)
     xp, rp = sense_vol_recon2(Tf8, maps8, rhs8, pencil, lamda=lam8, iters=6)
     x80, _ = sense_batch_recon(Tf8, maps8, rhs8.reshape(1, -1), lamda=lam8,
-                               iters=6)
+                               iters=6, device="cpu")
     out.update(x8_slab=host(xs), x8_pencil=host(xp), res8=host(rp),
                x8_one=host(x80)[0])
     # what the meshes do not divide is rejected up front

@@ -31,7 +31,7 @@ def test_h100_constants():
 
 def test_roofline_report(rng):
     d = rand64c(256, rng=rng)
-    op = tit.Diag(d)
+    op = tit.Diag(d, device="cpu")
     result, text = tp.roofline_report(op, ncols=1, measure=True)
     assert result["sol_sec"] > 0 and result["measured_sec"] > 0
     assert "roofline fraction" in text
@@ -46,7 +46,7 @@ def test_roofline_report(rng):
 def test_time_apply(rng):
     assert tp.time_apply(tit.UnscaledFFT((64,)), ncols=1, k1=1, k2=3,
                          device="cpu") > 0
-    A = tit.DenseMatrix(rand64c(12, 8, rng=rng))
+    A = tit.DenseMatrix(rand64c(12, 8, rng=rng), device="cpu")
     assert tp.time_apply(A, ncols=2) > 0          # runs where A lives
     with pytest.raises(ValueError):
         tp.time_apply(A, adjoint_pair=False)

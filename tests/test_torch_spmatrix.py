@@ -29,7 +29,7 @@ def _both(jop, top, x, adjoint=False):
 def test_spmatrix_matches_reference(fmt, cls, dtype, rng):
     A = randM(120, 333, 0.03, rng=rng, dtype=dtype)
     jop = jit_.SpMatrix(A, format=fmt)
-    top = tit.SpMatrix(A, format=fmt)
+    top = tit.SpMatrix(A, format=fmt, device="cpu")
     assert isinstance(top.ell, cls)
     assert top.shape == jop.shape == A.shape
     x = rand64c(333, 3, rng=rng)
@@ -49,7 +49,7 @@ def test_spmatrix_auto_format_selects_element(rng):
     cols = (rows * 7919) % (1 << 22)
     A = sp.csr_matrix((np.ones(m, np.float32), (rows, cols)),
                       shape=(m, 1 << 22))
-    op = tit.SpMatrix(A)
+    op = tit.SpMatrix(A, device="cpu")
     assert isinstance(op.ell, ElementELL) and op.ellH is None
     assert isinstance(jit_.SpMatrix(A).ell, jit_.sparse.ElementELL)
     x = torch.zeros((1 << 22, 1), dtype=torch.complex64)
@@ -63,8 +63,8 @@ def test_spmatrix_auto_format_selects_element(rng):
 def test_spmatrix_from_reference(fmt, rng):
     A = randM(90, 400, 0.02, rng=rng, dtype=np.float32)
     jop = jit_.SpMatrix(A, format=fmt, name="G")
-    top = spmatrix_from_reference(jop)
-    assert type(top.ell) is type(tit.SpMatrix(A, format=fmt).ell)
+    top = spmatrix_from_reference(jop, device="cpu")
+    assert type(top.ell) is type(tit.SpMatrix(A, format=fmt, device="cpu").ell)
     assert top.name == "G"
     x = rand64c(400, 2, rng=rng)
     s = rand64c(90, 2, rng=rng)
@@ -74,7 +74,7 @@ def test_spmatrix_from_reference(fmt, rng):
 
 def test_perm_matches_reference(rng):
     p = rng.permutation(50)
-    jop, top = jit_.Perm(p), tit.Perm(p)
+    jop, top = jit_.Perm(p), tit.Perm(p, device="cpu")
     x = rand64c(50, 3, rng=rng)
     for adj in (False, True):
         out, ref = _both(jop, top, x, adjoint=adj)
@@ -86,7 +86,7 @@ def test_perm_matches_reference(rng):
                                       ((6, 8, 4), (8, 12, 6))])
 def test_centered_dft_matches_reference(img, grid, rng):
     jop = jit_.CenteredDFT(img, grid)
-    top = tit.CenteredDFT(img, grid)
+    top = tit.CenteredDFT(img, grid, device="cpu")
     assert top.shape == jop.shape
     x = rand64c(int(np.prod(img)), 2, rng=rng)
     s = rand64c(int(np.prod(grid)), 2, rng=rng)
@@ -99,7 +99,7 @@ def test_centered_dft_matches_reference(img, grid, rng):
 def test_scale_matches_reference(alpha, rng):
     d = rand64c(20, rng=rng)
     jop = jit_.Scale(alpha, jit_.Diag(d))
-    top = tit.Scale(alpha, Diag(d))
+    top = tit.Scale(alpha, Diag(d, device="cpu"))
     x = rand64c(20, 2, rng=rng)
     for adj in (False, True):
         assert rel_err(*_both(jop, top, x, adjoint=adj)) < TOL
@@ -109,7 +109,7 @@ def test_scalar_multiplication_gives_scale(rng):
     """``2.0 * op``, ``op * 2.0`` and ``-op`` are Scale operators, as in the
     reference (the port's Operator returned NotImplemented before)."""
     d = rand64c(16, rng=rng)
-    op = Diag(d)
+    op = Diag(d, device="cpu")
     x = torch.from_numpy(rand64c(16, 2, rng=rng))
     for sop, a in ((2.0 * op, 2.0), (op * 2.0, 2.0), (-op, -1.0),
                    ((1 + 1j) * op, 1 + 1j)):

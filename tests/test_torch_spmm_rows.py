@@ -105,7 +105,7 @@ def test_row_form_from_reference(fmt, m, n, density):
     row form as the port's own converter."""
     conv, _, _, ref_conv = FORMATS[fmt]
     A = _random(m, n, density, seed=1)
-    got, want = sparse_from_reference(ref_conv(A)), conv(A)
+    got, want = sparse_from_reference(ref_conv(A), device="cpu"), conv(A)
     for name in ROW_FORM:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       getattr(want, name).numpy(), name)

@@ -17,9 +17,10 @@ from indigo_tpu_torch.utils import rand64c, rel_err
 def _ops(rng):
     M = randM(40, 30, 0.2, rng=rng)
     D = rand64c(40, 30, rng=rng)
-    return [(tit.SpMatrix(M), jit_.SpMatrix(M)),
-            (tit.DenseMatrix(D), jit_.DenseMatrix(D)),
-            (tit.DenseMatrix(D).H * tit.SpMatrix(M),
+    return [(tit.SpMatrix(M, device="cpu"), jit_.SpMatrix(M)),
+            (tit.DenseMatrix(D, device="cpu"), jit_.DenseMatrix(D)),
+            (tit.DenseMatrix(D, device="cpu").H
+             * tit.SpMatrix(M, device="cpu"),
              jit_.DenseMatrix(D).H * jit_.SpMatrix(M))]
 
 
@@ -102,7 +103,192 @@ def test_subpackage_exports():
             assert hasattr(t, name), (t.__name__, name)
     assert len(tp.__all__) == 14
     from indigo_tpu_torch.noncart import zpad_mat, checkerboard  # noqa: F401
-    assert tit.Diag(np.ones(3, np.complex64)).shape == (3, 3)
+    assert tit.Diag(np.ones(3, np.complex64), device="cpu").shape == (3, 3)
+
+
+# every name the reference exports: in the port, or dropped with a reason ---
+
+# reference module -> its counterpart in the port (None: no counterpart)
+COUNTERPART = {"cplx": None, "ops.dft_pallas": "ops.dft_cuda"}
+
+_CPLX = ("torch holds complex64 natively on the card; the reference's split "
+         "re/im planes (its device boundary) have no use")
+_TILED = ("the TPU's 128-lane tiled-grid layout; the port grids on the "
+          "natural-order grid (ops.tile_interp.kb_gather / kb_scatter)")
+# (reference module, name) -> (reason, the port's counterpart or None)
+DROPPED = {
+    **{("cplx", n): (_CPLX, None) for n in (
+        "CPair", "pack", "unpack", "as_payload", "iscpair", "conj",
+        "to_numpy", "cjit", "device_put_tree", "supports_complex_buffers",
+        "eager_call")},
+    ("ops.dft_fft", "tiled_idft_apply"): (_TILED, None),
+    ("ops.tile_interp", "tile_grid"): (_TILED, None),
+    ("ops.tile_interp", "untile_grid"): (_TILED, None),
+    ("ops.tile_interp", "tile_forward_tiled"): (_TILED, None),
+    ("ops.tile_interp", "tile_adjoint_tiled"): (_TILED, None),
+    ("ops.tile_interp", "bin_layout_of"): (
+        "the tiled adjoint's bin layout; the port's adjoint is one "
+        "index_add_ scatter", None),
+    ("ops.tile_interp", "merge_bin_layouts"): (
+        "the tiled adjoint's bin layout", None),
+    ("ops.tile_interp", "build_tile_adj_bins"): (
+        "the tiled adjoint's bin layout", None),
+    ("ops.dft_pallas", "pallas_spectrum"): (
+        "a Pallas name: the CUDA kernels read the block layout in (Z, Y, X) "
+        "order", "kernel_spectrum"),
+    ("ops.dft_pallas", "toeplitz_apply_pallas"): (
+        "a Pallas name: K2 is the CUDA kernel", "toeplitz_apply_cuda"),
+    ("ops.dft_pallas", "sense_normal_pallas"): (
+        "a Pallas name: K1 is the CUDA kernel", "sense_normal_cuda"),
+    ("ops.dft_pallas", "pallas_supported"): (
+        "a Pallas name: the volumes the CUDA kernels take", "supported"),
+    ("ops.ell_spmm", "ell_spmm_pallas"): (
+        "a Pallas name: K4 is the CUDA kernel", "ell_spmm_cuda"),
+    ("ops.ell_spmm", "jag_spmm_pallas"): (
+        "a Pallas name: K3 is the CUDA kernel", "jag_spmm_cuda"),
+}
+
+REFERENCE_MODULES = [
+    "analyses", "backends", "checkpoint", "cplx", "models", "models.recon",
+    "models.sense", "native", "noncart", "operators", "ops", "ops.dft_fft",
+    "ops.dft_pallas", "ops.ell_spmm", "ops.tile_interp", "ops.toeplitz_fft",
+    "oracle", "parallel", "parallel.dist_fft", "parallel.e2e",
+    "parallel.mesh", "parallel.recon", "profiling", "solvers", "sparse",
+    "toeplitz", "transforms", "utils", "wavelet"]
+
+
+def test_reference_modules_with_all_are_listed():
+    import importlib
+    import pkgutil
+    found = []
+    for info in pkgutil.walk_packages(jit_.__path__, "indigo_tpu."):
+        if info.name.rsplit(".", 1)[-1].startswith("_"):
+            continue            # private, and the native build's .so
+        mod = importlib.import_module(info.name)
+        if hasattr(mod, "__all__"):
+            found.append(info.name[len("indigo_tpu."):])
+    assert sorted(found) == sorted(REFERENCE_MODULES)
+
+
+@pytest.mark.parametrize("module", REFERENCE_MODULES)
+def test_every_reference_export_resolves_or_is_dropped(module):
+    """Each name in the reference module's ``__all__`` resolves in the
+    port's counterpart, or stands in ``DROPPED`` with its reason; a dropped
+    name does not resolve, and its counterpart, where it has one, does."""
+    import importlib
+    ref = importlib.import_module(f"indigo_tpu.{module}")
+    port_name = COUNTERPART.get(module, module)
+    port = (None if port_name is None else
+            importlib.import_module(f"indigo_tpu_torch.{port_name}"))
+    for (mod, name), (reason, instead) in DROPPED.items():
+        if mod != module:
+            continue
+        assert hasattr(ref, name) and reason, (module, name)
+        assert port is None or not hasattr(port, name), (module, name)
+        assert instead is None or hasattr(port, instead), (module, instead)
+    missing = [n for n in ref.__all__ if (port is None or
+               not hasattr(port, n)) and (module, n) not in DROPPED]
+    assert not missing, (module, missing)
+
+
+def test_set_spmm_impl_and_use_pallas_match_the_reference(rng):
+    """The reference's names: every impl gives the reference's product on
+    the same tiles (1e-5); use_pallas says whether the kernels serve."""
+    import indigo_tpu.ops as jops
+    import indigo_tpu_torch.ops as tops
+    from indigo_tpu_torch.convert import sparse_from_reference
+    assert tops.use_pallas() == torch.cuda.is_available()
+    assert jops.use_pallas() is False           # no TPU here
+    M = randM(60, 300, 0.05, rng=rng, dtype=np.float32)
+    x = rand64c(300, 2, rng=rng)
+    ja = jit_.sparse.csr_to_jag(M)
+    ta = sparse_from_reference(ja, device="cpu")
+    try:
+        for impl in ("jnp", "pallas", "auto"):
+            jops.set_spmm_impl(impl)
+            tops.set_spmm_impl(impl)
+            got = tops.spmm(ta, torch.from_numpy(x))
+            assert rel_err(got, np.asarray(jops.spmm(ja, x, impl="jnp"))
+                           ) < 1e-5, impl
+    finally:
+        jops.set_spmm_impl("auto")
+        tops.set_spmm_impl("auto")
+    with pytest.raises(ValueError):
+        tops.set_spmm_impl("cuda")
+
+
+@pytest.mark.parametrize("shape", [(136, 8, 136), (8, 8, 16), (200, 12),
+                                   (130,)])
+@pytest.mark.parametrize("lead", [0, 1, 2])
+def test_sigma_helpers_equal_the_reference(rng, shape, lead):
+    import jax.numpy as jnp
+    from indigo_tpu.ops import dft_pallas as jd
+    from indigo_tpu_torch.ops import dft_cuda as td
+    assert td.uses_sigma_basis(shape) == jd.uses_sigma_basis(shape)
+    axes = td.solver_sigma_axes(shape, lead)
+    assert axes == jd.solver_sigma_axes(shape, lead)
+    a = rand64c(*((2,) * lead + shape), rng=rng)
+    s = td.to_sigma_basis(torch.from_numpy(a), axes)
+    np.testing.assert_array_equal(
+        s.numpy(), np.asarray(jd.to_sigma_basis(jnp.asarray(a), axes)))
+    np.testing.assert_array_equal(
+        td.from_sigma_basis(s, axes).numpy(),
+        np.asarray(jd.from_sigma_basis(jnp.asarray(s.numpy()), axes)))
+    np.testing.assert_array_equal(td.from_sigma_basis(s, axes).numpy(), a)
+
+
+def test_sense_normal_batched_sigma_in_sigma_out(rng):
+    """The reference's sigma contract at (136, 8, 136): sigma-basis input,
+    sigma-basis output, equal to the reference's natural-order normal op
+    reordered by the reference's own helper (1e-5)."""
+    import jax.numpy as jnp
+    from indigo_tpu.ops import dft_pallas as jd
+    from indigo_tpu.ops.dft_fft import block_spectrum as j_block
+    from indigo_tpu.parallel import sense_normal_batched as j_normal
+    from indigo_tpu_torch.ops.dft_cuda import kernel_spectrum
+    from indigo_tpu_torch.parallel import sense_normal_batched
+    shape = (136, 8, 136)
+    Tf = rng.standard_normal(tuple(2 * s for s in shape)).astype(np.float32)
+    maps = rand64c(2, *shape, rng=rng)
+    u = rand64c(1, *shape, rng=rng)
+    ax = jd.solver_sigma_axes(shape)
+    assert ax == (1, 3)
+    want = jd.to_sigma_basis(j_normal(
+        jnp.asarray(j_block(Tf)), jnp.asarray(maps), jnp.asarray(u.reshape(
+            1, -1)), layout="block").reshape(u.shape), ax)
+    us = np.asarray(jd.to_sigma_basis(jnp.asarray(u), ax))
+    out = sense_normal_batched(kernel_spectrum(Tf), maps, us.reshape(1, -1),
+                               layout="pallas", sigma=True, device="cpu")
+    assert out.dtype == torch.complex64
+    assert rel_err(out, np.asarray(want).reshape(1, -1)) < 1e-5
+
+
+def test_toeplitz_sigma_basis_conjugation_matches_the_reference(rng):
+    """K == P.H * K_sigma * P at (8, 8, 136) (1e-5): the reference's
+    permutation, and the reference's operator on the same spectrum (its
+    "dft" method: the same f32 math without the Pallas kernels' bf16x3
+    emulation, which alone differs by ~1e-5); a no-op on non-radix
+    volumes."""
+    from indigo_tpu.toeplitz import ToeplitzNormal as JToeplitz
+    img = (8, 8, 136)
+    Tf = rng.standard_normal(tuple(2 * s for s in img)).astype(np.float32)
+    K = tit.ToeplitzNormal(Tf, img, method="pallas", device="cpu")
+    Ks, P = K.sigma_basis()
+    Kj = JToeplitz(Tf, img, method="pallas")
+    _, Pj = Kj.sigma_basis()
+    assert isinstance(P, tit.Perm)
+    np.testing.assert_array_equal(P.perm.numpy(), np.asarray(Pj.perm))
+    x = rand64c(int(np.prod(img)), 2, rng=rng)
+    lhs = np.asarray(JToeplitz(Tf, img, method="dft") * x)
+    assert rel_err(K * x, lhs) < 1e-5
+    assert rel_err(P.H * (Ks * (P * x)), lhs) < 1e-5
+    assert rel_err(Ks * (P * x), P * lhs) < 1e-5     # Ks = P K P^H
+    K64 = tit.ToeplitzNormal(Tf[:16, :16, :32], (8, 8, 16), method="pallas",
+                             device="cpu")
+    Ks64, P64 = K64.sigma_basis()
+    assert Ks64 is K64 and P64 is None
+    Kd = tit.ToeplitzNormal(Tf, img, method="dft", device="cpu")
+    assert Kd.sigma_basis() == (Kd, None)
 
 
 # ---- reference-shaped calls ---------------------------------------------
@@ -124,12 +310,12 @@ def test_tile_interp_apply_takes_the_reference_call(rng, grid):
     fwd = tti.tile_interp_apply(tp, torch.from_numpy(x))
     assert rel_err(fwd, np.asarray(jti.tile_interp_apply(
         jp, jnp.asarray(x)))) < 1e-5
-    adj = tti.tile_interp_apply(tp, y, adjoint=True, chunk=32)
+    adj = tti.tile_interp_apply(tp, y, adjoint=True, chunk=32, device="cpu")
     assert tuple(adj.shape) == (N, 2)
     assert rel_err(adj, np.asarray(jti.tile_interp_apply(
         jp, jnp.asarray(y), adjoint=True, chunk=32))) < 1e-5
     xr = x.real.copy()
-    out = tti.tile_interp_apply(tp, xr)
+    out = tti.tile_interp_apply(tp, xr, device="cpu")
     assert out.dtype == torch.float32
     assert rel_err(out, np.asarray(jti.tile_interp_apply(
         jp, jnp.asarray(xr)))) < 1e-5
@@ -146,8 +332,11 @@ def test_sense_normal_batched_takes_the_reference_layout_name(rng):
     a = sense_normal_batched(Tb, maps, xs, layout="pallas", sigma=False)
     b = sense_normal_batched(Tb, maps, xs, layout="kernel")
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        sense_normal_batched(Tb, maps, xs, layout="pallas", sigma=True)
+    # no axis over 128: the sigma basis is the natural order
+    c = sense_normal_batched(Tb, maps, xs, layout="pallas", sigma=True)
+    assert torch.equal(a, c)
+    with pytest.raises(ValueError):     # a kernel-layout contract, as there
+        sense_normal_batched(Tb, maps, xs, layout="block", sigma=True)
 
 
 def test_tpu_only_knobs_are_accepted(rng):
@@ -170,7 +359,7 @@ def test_tpu_only_knobs_are_accepted(rng):
         with pytest.raises(RuntimeError):
             tn.interp_mat(traj, (16, 16), impl="native")
     p = rng.permutation(9)
-    P = tit.Perm(p, dtype=np.complex64)
+    P = tit.Perm(p, dtype=np.complex64, device="cpu")
     assert P.dtype == torch.complex64
     x = torch.from_numpy(rand64c(9, 2, rng=rng))
     assert torch.equal(P * x, x[torch.from_numpy(p)])
@@ -188,9 +377,19 @@ def test_tpu_only_knobs_are_accepted(rng):
 def _card_calls():
     from indigo_tpu_torch.models import (cartesian_sense_op, centered_fft_op,
                                          nufft_op, sense_nufft_op)
+    from indigo_tpu_torch.noncart import pipe_menon_dcf
+    from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
+    from indigo_tpu_torch.parallel import sense_batch_recon
+    from indigo_tpu_torch.toeplitz import toeplitz_kernel
+    rng = np.random.default_rng(0)
     traj = np.linspace(-0.4, 0.4, 40)[:, None] * np.ones((1, 2))
     maps = np.ones((2, 8, 8), np.complex64)
     b = np.ones(6, np.complex64)
+    plan = plan_tile_interp(rng.uniform(-0.5, 0.5, (30, 2)), (16, 16),
+                            width=4, beta=6.5)
+    Tf = rng.standard_normal((16, 16, 16))       # 64-bit, as a user's
+    maps3 = rng.standard_normal((2, 8, 8, 8)) + 0j
+    traj3 = rng.uniform(-0.5, 0.5, (50, 3))
     return {
         "cartesian_sense_op": lambda **k: cartesian_sense_op(
             np.ones((8, 8), bool), maps, **k),
@@ -203,22 +402,113 @@ def _card_calls():
                                      b, maxiter=2, **k)[0],
         "max_eigen": lambda **k: tit.max_eigen(lambda v: 2.0 * v, 6, iters=2,
                                                **k),
+        # the eight leaves that hold arrays, from host data
+        "SpMatrix": lambda **k: tit.SpMatrix(randM(6, 5, 0.5, rng=0), **k),
+        "KBInterp": lambda **k: tit.KBInterp(plan, **k),
+        "DenseMatrix": lambda **k: tit.DenseMatrix(np.eye(3), **k),
+        "Diag": lambda **k: tit.Diag(np.ones(3), **k),
+        "CenteredDFT": lambda **k: tit.CenteredDFT((8, 8), (16, 16), **k),
+        "GridDFT": lambda **k: tit.GridDFT(plan, (8, 8), **k),
+        "Perm": lambda **k: tit.Perm([2, 0, 1], **k),
+        "Mask": lambda **k: tit.Mask([0, 2], 4, **k),
+        # a tree without arrays times a numpy operand
+        "array-less tree * ndarray": lambda **k: (
+            tit.Eye(6, **k) * tit.UnscaledFFT((2, 3), **k)
+            * tit.CropPad((2, 2), (2, 3), **k)) * np.ones(4),
+        "ToeplitzNormal": lambda **k: tit.ToeplitzNormal(Tf, (8, 8, 8), **k),
+        "sense_normal_toeplitz": lambda **k: tit.sense_normal_toeplitz(
+            Tf, maps3, **k),
+        # host results: the doubled and the padded grid are 64^3 and over
+        "toeplitz_kernel": lambda **k: toeplitz_kernel(
+            traj3, (24, 24, 24), width=4, warn=False, **k),
+        "pipe_menon_dcf": lambda **k: pipe_menon_dcf(
+            traj3, (64, 64, 64), width=4, iters=2, **k),
+        "sense_batch_recon": lambda **k: sense_batch_recon(
+            Tf, maps3, rng.standard_normal((1, 512)), iters=2, **k)[0],
+        "soft_thresh": lambda **k: tit.soft_thresh(np.ones(4), 0.1, **k),
     }
 
 
-@pytest.mark.parametrize("name", ["cartesian_sense_op", "centered_fft_op",
-                                  "nufft_op", "sense_nufft_op", "DWT", "cg",
-                                  "apgd", "max_eigen"])
+@pytest.mark.parametrize("name", [
+    "cartesian_sense_op", "centered_fft_op", "nufft_op", "sense_nufft_op",
+    "DWT", "cg", "apgd", "max_eigen", "SpMatrix", "KBInterp", "DenseMatrix",
+    "Diag", "CenteredDFT", "GridDFT", "Perm", "Mask",
+    "array-less tree * ndarray", "ToeplitzNormal", "sense_normal_toeplitz",
+    "toeplitz_kernel", "pipe_menon_dcf", "sense_batch_recon", "soft_thresh"])
 def test_entry_point_defaults_to_the_card(name):
-    """Handed no tensor and no ``device``, an entry point goes to the card:
+    """Handed host data and no ``device``, an entry point goes to the card:
     where there is none it raises and does not quietly stay on the host;
-    ``device="cpu"`` is how a caller asks for the host."""
+    ``device="cpu"`` is how a caller asks for the host. (The DCF and the
+    spectrum return numpy on either; their host run is the one that needs
+    no card.)"""
     call = _card_calls()[name]
     out = call(device="cpu")
-    dev = out.device
-    assert dev is not None and dev.type == "cpu"
+    if isinstance(out, np.ndarray):
+        assert out.dtype == np.float32
+    else:
+        dev = out.device
+        assert dev is not None and dev.type == "cpu"
+        if isinstance(out, tit.Operator):
+            assert all(t.device.type == "cpu" for t in out.buffers())
     if torch.cuda.is_available():
-        assert call().device.type == "cuda"
+        out = call()
+        assert isinstance(out, np.ndarray) or out.device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+def _two_device_calls():
+    """Calls whose tensors lie on two devices (the CPU and torch's "meta"
+    device, which stands in for the card here), with no ``device=``."""
+    from indigo_tpu_torch.parallel import sense_batch_recon
+    from indigo_tpu_torch.parallel.recon import sense_normal_batched
+    rng = np.random.default_rng(0)
+    img = (8, 8, 8)
+    Tf = rng.standard_normal((16, 16, 16)).astype(np.float32)
+    maps = torch.from_numpy(rand64c(2, *img, rng=rng))
+    x = torch.from_numpy(rand64c(1, 512, rng=rng))
+    meta = torch.device("meta")
+    return {
+        "Operator * tensor": lambda: tit.Diag(np.ones(3), device=meta)
+        * torch.ones(3, dtype=torch.complex64),
+        "Operator.eval": lambda: tit.Diag(np.ones(3), device=meta).eval(
+            torch.ones(3, dtype=torch.complex64)),
+        "cg": lambda: tit.cg(tit.Diag(np.ones(3), device=meta),
+                             torch.ones(3, dtype=torch.complex64),
+                             maxiter=2),
+        "sense_normal_batched": lambda: sense_normal_batched(
+            Tf, maps, x.to(meta)),
+        "sense_batch_recon": lambda: sense_batch_recon(
+            Tf, maps.to(meta), x, iters=2),
+        "sense_normal_toeplitz": lambda: tit.sense_normal_toeplitz(
+            torch.from_numpy(Tf), maps.to(meta)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "Operator * tensor", "Operator.eval", "cg", "sense_normal_batched",
+    "sense_batch_recon", "sense_normal_toeplitz"])
+def test_entry_point_leaves_tensors_where_they_are(name):
+    """A tensor is never moved to another device on its own: tensors on
+    two devices raise, so a card tensor never runs on the host because an
+    operator or another input lies there."""
+    with pytest.raises((RuntimeError, ValueError)):
+        _two_device_calls()[name]()
+
+
+def test_host_data_joins_the_tensors_device():
+    """With no ``device=``, host data goes where the tensors given lie, and
+    needs no card when they lie on the host."""
+    from indigo_tpu_torch.parallel.recon import sense_normal_batched
+    rng = np.random.default_rng(1)
+    Tf = rng.standard_normal((16, 16, 16))                    # float64
+    maps = torch.from_numpy(rand64c(2, 8, 8, 8, rng=rng))
+    x = rand64c(1, 512, rng=rng).astype(np.complex128)
+    out = sense_normal_batched(Tf, maps, x)
+    want = sense_normal_batched(Tf, maps, x, device="cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.complex64
+    assert torch.equal(out, want)
+    N = tit.sense_normal_toeplitz(torch.from_numpy(Tf.astype(np.float32)),
+                                  maps)
+    assert all(t.device.type == "cpu" for t in N.buffers())

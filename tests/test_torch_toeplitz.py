@@ -18,7 +18,7 @@ def test_host_matches_reference(rng, img, oversamp, weighted):
                           return_info=True, warn=False, impl="host")
     out, info = toeplitz_kernel(traj, img, oversamp=oversamp, width=4,
                                 weights=w, return_info=True, warn=False,
-                                impl="host")
+                                impl="host", device="cpu")
     assert out.shape == ref.shape and out.dtype == np.float32
     assert rel_err(out, ref) < 1e-5
     assert abs(info["max"] - rinfo["max"]) <= 1e-5 * rinfo["max"]
@@ -30,7 +30,7 @@ def test_torch_build_matches_host(rng, img, oversamp):
     traj = rng.uniform(-0.5, 0.5, size=(400, len(img)))
     w = rng.uniform(0.2, 1.0, 400).astype(np.float32)
     host = toeplitz_kernel(traj, img, oversamp=oversamp, width=4, weights=w,
-                           warn=False, impl="host")
+                           warn=False, impl="host", device="cpu")
     dev = toeplitz_kernel(traj, img, oversamp=oversamp, width=4, weights=w,
                           warn=False, impl="device", device="cpu")
     assert rel_err(dev, host) < 1e-5
@@ -38,6 +38,6 @@ def test_torch_build_matches_host(rng, img, oversamp):
 
 def test_auto_is_host_off_cuda(rng):
     traj = rng.uniform(-0.5, 0.5, size=(50, 2))
-    a = toeplitz_kernel(traj, (8, 8), width=4, warn=False)
+    a = toeplitz_kernel(traj, (8, 8), width=4, warn=False, device="cpu")
     b = toeplitz_kernel(traj, (8, 8), width=4, warn=False, impl="host")
     np.testing.assert_array_equal(a, b)

@@ -65,7 +65,7 @@ def test_pallas_method_matches_reference_kernel(rng, img):
     Tf = _spectrum(rng, img)
     x = rand64c(int(np.prod(img)), 2, rng=rng)
     ref = np.asarray(JToeplitz(Tf, img, method="pallas") * x)
-    K = ToeplitzNormal(Tf, img, method="pallas")
+    K = ToeplitzNormal(Tf, img, method="pallas", device="cpu")
     before = toeplitz_apply_cuda.launches
     out = K * _t(x)
     assert toeplitz_apply_cuda.launches == before   # CPU: the plain version
@@ -78,21 +78,25 @@ def test_dft_and_fft_methods_match_reference(rng, img, method):
     Tf = _spectrum(rng, img)
     x = rand64c(int(np.prod(img)), 3, rng=rng)
     ref = np.asarray(JToeplitz(Tf, img, method=method) * x)
-    out = ToeplitzNormal(Tf, img, method=method) * _t(x)
+    out = ToeplitzNormal(Tf, img, method=method, device="cpu") * _t(x)
     assert rel_err(out, ref) < 1e-5
 
 
 def test_auto_method_resolves_by_volume(rng):
-    assert ToeplitzNormal(_spectrum(rng, (8, 8, 16)), (8, 8, 16)).method \
+    assert ToeplitzNormal(_spectrum(rng, (8, 8, 16)), (8, 8, 16),
+                          device="cpu").method \
         == "pallas"
-    assert ToeplitzNormal(_spectrum(rng, (12, 16)), (12, 16)).method == "dft"
-    assert ToeplitzNormal(_spectrum(rng, (12, 8, 8)), (12, 8, 8)).method \
+    assert ToeplitzNormal(_spectrum(rng, (12, 16)), (12, 16),
+                          device="cpu").method == "dft"
+    assert ToeplitzNormal(_spectrum(rng, (12, 8, 8)), (12, 8, 8),
+                          device="cpu").method \
         == "dft"
     with pytest.raises(ValueError):
         ToeplitzNormal(_spectrum(rng, (12, 8, 8)), (12, 8, 8),
-                       method="pallas")
+                       method="pallas", device="cpu")
     with pytest.raises(ValueError):
-        ToeplitzNormal(_spectrum(rng, (8, 8)), (8, 8), method="mm")
+        ToeplitzNormal(_spectrum(rng, (8, 8)), (8, 8), method="mm",
+                       device="cpu")
 
 
 @pytest.mark.parametrize("method,img", [("pallas", (8, 8, 16)),
@@ -101,10 +105,11 @@ def test_auto_method_resolves_by_volume(rng):
 def test_from_reference_applies_the_same_operator(rng, method, img):
     Tf = _spectrum(rng, img)
     jk = JToeplitz(Tf, img, name="T", method=method)
-    pk = toeplitz_from_reference(jk)
+    pk = toeplitz_from_reference(jk, device="cpu")
     assert pk.method == method and pk.img_shape == img and pk.name == "T"
     np.testing.assert_array_equal(
-        pk.T.numpy(), ToeplitzNormal(Tf, img, method=method).T.numpy())
+        pk.T.numpy(),
+        ToeplitzNormal(Tf, img, method=method, device="cpu").T.numpy())
     x = rand64c(int(np.prod(img)), 2, rng=rng)
     tol = 2e-4 if method == "pallas" else 1e-5
     assert rel_err(pk * _t(x), np.asarray(jk * x)) < tol
@@ -113,7 +118,7 @@ def test_from_reference_applies_the_same_operator(rng, method, img):
 @pytest.mark.parametrize("method", ["pallas", "dft", "fft"])
 def test_self_adjoint(rng, method):
     img = (8, 8, 8)
-    K = ToeplitzNormal(_spectrum(rng, img), img, method=method)
+    K = ToeplitzNormal(_spectrum(rng, img), img, method=method, device="cpu")
     x, y = (_t(rand64c(512, 1, rng=rng)) for _ in range(2))
     lhs = torch.vdot((K * x).ravel(), y.ravel())
     rhs = torch.vdot(x.ravel(), (K * y).ravel())
@@ -124,7 +129,7 @@ def test_self_adjoint(rng, method):
 def test_shape_cost_describe_and_sigma_basis(rng):
     img = (8, 8, 16)
     Tf = _spectrum(rng, img)
-    K = ToeplitzNormal(Tf, img, name="Toep")
+    K = ToeplitzNormal(Tf, img, name="Toep", device="cpu")
     jk = JToeplitz(Tf, img, name="Toep", method="dft")
     assert K.shape == jk.shape == (1024, 1024)
     assert K.dtype == torch.complex64
@@ -139,9 +144,9 @@ def test_spectrum_is_module_state(rng):
     """The spectrum is a buffer, so ``.to()`` moves it and a state_dict
     carries the whole operator."""
     img = (8, 8, 8)
-    K = ToeplitzNormal(_spectrum(rng, img), img)
+    K = ToeplitzNormal(_spectrum(rng, img), img, device="cpu")
     assert list(K.state_dict()) == ["T"]
-    K2 = ToeplitzNormal(np.zeros((16, 16, 16), np.float32), img)
+    K2 = ToeplitzNormal(np.zeros((16, 16, 16), np.float32), img, device="cpu")
     K2.load_state_dict(K.state_dict())
     x = _t(rand64c(512, 2, rng=rng))
     np.testing.assert_array_equal((K2 * x).numpy(), (K * x).numpy())
@@ -154,7 +159,7 @@ def test_sense_tree_matches_reference_tree(rng, K):
     maps = rand64c(nc, *img, rng=rng)
     x = rand64c(int(np.prod(img)), K, rng=rng)
     ref = np.asarray(j_tree(Tf, maps) * x)
-    N = sense_normal_toeplitz(Tf, maps)
+    N = sense_normal_toeplitz(Tf, maps, device="cpu")
     out = N * _t(x)
     assert N.shape == (1024, 1024)
     assert rel_err(out, ref) < 1e-5
@@ -167,7 +172,7 @@ def test_sense_tree_matches_batched(rng):
     Tf = _spectrum(rng, img)
     maps = rand64c(nc, *img, rng=rng)
     x = rand64c(int(np.prod(img)), 2, rng=rng)
-    out = sense_normal_toeplitz(Tf, maps) * _t(x)
+    out = sense_normal_toeplitz(Tf, maps, device="cpu") * _t(x)
     ref = sense_normal_batched(_t(Tf), _t(maps), _t(x.T.copy()))
     assert rel_err(out, ref.T) < 1e-5
 
@@ -189,8 +194,8 @@ def test_cg_on_tree_matches_reference(rng, tol, maxiter):
     lam = 0.2 * float(np.abs(Tf).max())
     xr, ir = jit_.cg(j_tree(Tf, maps), AHy, lamda=lam, tol=tol,
                      maxiter=maxiter)
-    xp, ip = it.cg(sense_normal_toeplitz(Tf, maps), _t(AHy), lamda=lam,
-                   tol=tol, maxiter=maxiter)
+    xp, ip = it.cg(sense_normal_toeplitz(Tf, maps, device="cpu"), _t(AHy),
+                   lamda=lam, tol=tol, maxiter=maxiter)
     assert int(ip["iters"]) == int(ir["iters"])
     assert rel_err(xp, np.asarray(xr)) < 1e-4
 
@@ -198,7 +203,7 @@ def test_cg_on_tree_matches_reference(rng, tol, maxiter):
 def test_cg_on_tree_solves_the_normal_equations(rng):
     Tf, maps, AHy = _sense_problem(rng)
     lam = 0.2 * float(np.abs(Tf).max())
-    N = sense_normal_toeplitz(Tf, maps)
+    N = sense_normal_toeplitz(Tf, maps, device="cpu")
     x, info = it.cg(N, _t(AHy), lamda=lam, tol=0.0, maxiter=40,
                     history=True)
     res = (N * x + lam * x) - _t(AHy)

@@ -31,12 +31,12 @@ def assert_equiv(a, b, rng, tol=TOL):
 
 
 def dense(rng, m, n):
-    return tit.DenseMatrix(rand64c(m, n, rng=rng))
+    return tit.DenseMatrix(rand64c(m, n, rng=rng), device="cpu")
 
 
 def test_distribute_adjoint(rng):
     A = dense(rng, 6, 8)
-    B = tit.SpMatrix(randM(8, 10, 0.3, rng=rng))
+    B = tit.SpMatrix(randM(8, 10, 0.3, rng=rng), device="cpu")
     tree = (A * B).H
     out = DistributeAdjointOverProduct().visit(tree)
     assert isinstance(out, Product)
@@ -52,9 +52,9 @@ def test_distribute_adjoint(rng):
 
 def test_distribute_adjoint_through_stacks_and_scale(rng):
     A, B = dense(rng, 4, 5), dense(rng, 6, 5)
-    d = tit.Diag(rand64c(5, rng=rng))
+    d = tit.Diag(rand64c(5, rng=rng), device="cpu")
     tree = ((2.0 + 1.0j) * (tit.VStack([A, B]) * d
-                            * tit.HStack([d, tit.Eye(5)]))).H
+                            * tit.HStack([d, tit.Eye(5, device="cpu")]))).H
     out = DistributeAdjointOverProduct().visit(tree)
     assert_equiv(tree, out, rng)
     kinds = {type(m).__name__ for m in out.modules()}
@@ -74,7 +74,7 @@ def test_distribute_kroni(rng):
     assert isinstance(flat, KronI) and flat.c == 6
     assert_equiv(nested, flat, rng)
     assert DistributeKronIOverProduct().visit(KronI(1, A)) is A
-    eye = DistributeKronIOverProduct().visit(KronI(3, Eye(4)))
+    eye = DistributeKronIOverProduct().visit(KronI(3, Eye(4, device="cpu")))
     assert isinstance(eye, Eye) and eye.shape == (12, 12)
 
 
@@ -99,8 +99,8 @@ def test_fold_scale(rng):
 
 
 def test_realize_matrices(rng):
-    S1 = tit.SpMatrix(randM(10, 12, 0.3, rng=rng))
-    S2 = tit.SpMatrix(randM(12, 9, 0.3, rng=rng))
+    S1 = tit.SpMatrix(randM(10, 12, 0.3, rng=rng), device="cpu")
+    S2 = tit.SpMatrix(randM(12, 9, 0.3, rng=rng), device="cpu")
     tree = S1 * S2
     out = RealizeMatrices().visit(tree)
     assert isinstance(out, SpMatrix)
@@ -109,8 +109,8 @@ def test_realize_matrices(rng):
 
 @pytest.mark.parametrize("fmt", ["jag", "bell", "element"])
 def test_realize_reads_every_sparse_format(rng, fmt):
-    S = tit.SpMatrix(randM(10, 12, 0.3, rng=rng), format=fmt)
-    d = tit.Diag(rand64c(10, rng=rng))
+    S = tit.SpMatrix(randM(10, 12, 0.3, rng=rng), format=fmt, device="cpu")
+    d = tit.Diag(rand64c(10, rng=rng), device="cpu")
     out = RealizeMatrices().visit(d * S)
     assert isinstance(out, SpMatrix)
     assert_equiv(d * S, out, rng)
@@ -118,9 +118,9 @@ def test_realize_reads_every_sparse_format(rng, fmt):
 
 def test_realize_through_chain(rng):
     """Diag * Sp * FFT: the two left leaves fuse, FFT stays."""
-    d = tit.Diag(rand64c(12, rng=rng))
-    S = tit.SpMatrix(randM(12, 12, 0.3, rng=rng))
-    F = tit.UnscaledFFT((12,))
+    d = tit.Diag(rand64c(12, rng=rng), device="cpu")
+    S = tit.SpMatrix(randM(12, 12, 0.3, rng=rng), device="cpu")
+    F = tit.UnscaledFFT((12,), device="cpu")
     tree = d * (S * F)
     out = RealizeMatrices().visit(tree)
     assert isinstance(out, Product)
@@ -131,25 +131,27 @@ def test_realize_through_chain(rng):
 
 def test_realize_eye_elision_and_diag(rng):
     A = dense(rng, 6, 6)
-    tree = Product(Eye(6), A)
+    tree = Product(Eye(6, device="cpu"), A)
     out = RealizeMatrices().visit(tree)
     assert out is A
     assert_equiv(tree, out, rng)
     # two diagonals fuse into one Diag; a diagonal and its inverse into Eye
     d = rand64c(6, rng=rng)
-    dd = RealizeMatrices().visit(tit.Diag(d) * tit.Diag(d))
+    dd = RealizeMatrices().visit(tit.Diag(d, device="cpu")
+                                 * tit.Diag(d, device="cpu"))
     assert isinstance(dd, Diag)
     assert rel_err(dd.payload, d * d) < 1e-6
-    one = RealizeMatrices().visit(tit.Diag(d) * tit.Diag(1 / d))
+    one = RealizeMatrices().visit(tit.Diag(d, device="cpu")
+                                  * tit.Diag(1 / d, device="cpu"))
     assert isinstance(one, Eye)
 
 
 def test_full_optimize_pipeline(rng):
     """A realistic SENSE-like tree survives the full default recipe."""
     n = 8
-    F = tit.UnscaledFFT((n,))
-    P = tit.SpMatrix(randM(5, n, 0.4, rng=rng))
-    S = tit.Diag(rand64c(n, rng=rng))
+    F = tit.UnscaledFFT((n,), device="cpu")
+    P = tit.SpMatrix(randM(5, n, 0.4, rng=rng), device="cpu")
+    S = tit.Diag(rand64c(n, rng=rng), device="cpu")
     A = KronI(2, P * F * S)
     AH_A = A.H * A
     assert_equiv(AH_A, optimize(AH_A), rng)
@@ -247,7 +249,7 @@ def test_optimize_gives_the_reference_tree(rng, case):
     """Same input tree, same rewritten tree (class names node for node) and
     the same operator to 2e-5."""
     ref = _reference_trees(rng)[case]
-    port = operator_from_reference(ref)
+    port = operator_from_reference(ref, device="cpu")
     assert _names(port) == _names(ref)
     ref_opt, port_opt = jtr.optimize(ref), optimize(port)
     assert _names(port_opt) == _names(ref_opt)

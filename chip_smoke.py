@@ -77,10 +77,11 @@ raises and exits non-zero):
      y = A x + 1 % noise,
      N = (A.H * A).optimize() (host spGEMM: Mask.H * Mask fuses into one
      Diag; seconds and peak host memory printed), rhs = A.H * y, lamda =
-     1e-3 x max_eigen(N), two solves of cg(N, rhs, lamda, tol=0,
-     maxiter=10, history=True). Checks: the nonzero cap of the fusion was
-     not hit and no Mask leaf is left in N; one apply of N equals one of
-     A.H * A (<= 1e-5); finite, decreasing residuals; a finite image.
+     1e-3 x max_eigen(N) (and max_eigen(N, dtype=np.complex64), the
+     reference's call form, equal to it), two solves of cg(N, rhs, lamda,
+     tol=0, maxiter=10, history=True). Checks: the nonzero cap of the
+     fusion was not hit and no Mask leaf is left in N; one apply of N equals
+     one of A.H * A (<= 1e-5); finite, decreasing residuals; a finite image.
      Small check, GPU and CPU: the recipe exactly as
      examples/cartesian_sense_2d.py writes it (SpMatrix(P) * UnscaledFFT *
      Diag, optimize, cg at lamda 1e-6) at 128^2. Its system is singular,
@@ -173,8 +174,15 @@ raises and exits non-zero):
      SpMatrix(G) of the float64 scipy gridding matrix runs K3,
      set_spmm_impl("jnp") launches no K3 and equals the kernel (<= 1e-5),
      "auto" restores it; sense_batch_recon(Tf, maps_c128, rhs_c128) runs K1
-     and equals the tree solve (<= 1e-4). Its launches are added to the
-     kernels line.
+     and equals the tree solve (<= 1e-4). Then the reference's call forms:
+     csr_to_jag / csr_to_bell(G_f64, dtype=np.float64) hold float32 and run
+     one K3 / K4 per apply, no plain SpMM, bitwise the default conversion's
+     result (ms per apply printed); the serving plan from every (adjoint,
+     forward, reorder) keyword of plan_tile_interp gives one plan without
+     reorder, and with it the group-major order under forward="grouped"
+     only (S, GB and build seconds printed); centered_fft_op(256^3,
+     dtype=np.complex128) returns complex64, bitwise the complex64 op's.
+     Its launches are added to the kernels line.
 After the counted runs, one warm solve of each path runs under
 torch.profiler ([profile] lines: device time by kernel, busy share; for the
 radial solve also K3's share and the launches per CG iteration).
@@ -1507,10 +1515,20 @@ def phase_cartesian(maps, x_true):
         raise AssertionError(f"optimized N vs A.H * A: rel_err "
                              f"{err_apply:.3e}")
     rhs = A.H * y
-    lam = 1e-3 * float(max_eigen(Nop, A.shape[1], iters=10))
+    eig = max_eigen(Nop, A.shape[1], iters=10)
+    # the reference's call form: a numpy dtype
+    eig_np = max_eigen(Nop, A.shape[1], iters=10, dtype=np.complex64)
+    err_eig = abs(float(eig_np) - float(eig)) / abs(float(eig))
+    if not (eig_np.is_cuda and err_eig <= 1e-6):
+        raise AssertionError(f"max_eigen(dtype=np.complex64) vs "
+                             f"torch.complex64: {eig_np.device}, rel "
+                             f"{err_eig:.3e}")
+    lam = 1e-3 * float(eig)
     torch.cuda.synchronize()
     log("cartesian_apply", t0, rel_err_optimized_vs_tree=f"{err_apply:.3e}",
-        lamda=f"{lam:.4g}")
+        lamda=f"{lam:.4g}", card=repr(card_line()),
+        max_eigen_numpy_dtype_rel=f"{err_eig:.3e}",
+        max_eigen_numpy_dtype_bitwise=bool(torch.equal(eig_np, eig)))
 
     def solve(op):
         return cg(op, rhs, lamda=lam, tol=0.0, maxiter=CART_ITERS,
@@ -2402,8 +2420,9 @@ class DeviceSpy:
 
 def phase_boundary():
     """Phase 11: the 3D Toeplitz recipe from 64-bit numpy with no device=,
-    the radial lane's bare SpMatrix and set_spmm_impl, and
-    sense_batch_recon from numpy. Returns the K1, K2 and K3 launches."""
+    the radial lane's bare SpMatrix and set_spmm_impl, sense_batch_recon
+    from numpy, and the reference's call forms (boundary_call_forms).
+    Returns the K1, K2, K3 and K4 launches."""
     import torch
     from indigo_tpu_torch import SpMatrix, cg, noncart, sense_normal_toeplitz
     from indigo_tpu_torch.models.sense import sense_nufft_op
@@ -2561,8 +2580,128 @@ def phase_boundary():
                   spmatrix_s=f"{time.time() - t0:.3f}")
     del G, yk, yp, ya
     torch.cuda.empty_cache()
+    k34 = boundary_call_forms(traj, grid, G64)
     log("boundary", t_phase, **fields)
-    return {"k1": k1, "k2": sum(k2), "k3": k3_kernel + k3_auto}
+    return {"k1": k1, "k2": sum(k2), "k3": k3_kernel + k3_auto + k34["k3"],
+            "k4": k34["k4"]}
+
+
+def group_major_order(plan):
+    """The reference's grouped-forward sample order, from a plan built
+    without it: samples sorted (stably) by how many super-tile members
+    their patch covers along each axis (KB weights are > 0 on the whole
+    patch, so a member is covered where its weights are not all zero)."""
+    code = np.zeros(plan.n_samples, dtype=np.int64)
+    for w in plan.wfac:
+        code = code * w.shape[1] + ((w > 0).any(axis=2).sum(axis=1) - 1)
+    return np.argsort(code, kind="stable")
+
+
+def boundary_call_forms(traj, grid, G64):
+    """Phase 11, the reference's call forms at full width: (a) K3 and K4
+    from csr_to_jag / csr_to_bell(G_f64, dtype=np.float64); (b) the
+    serving plan from every (adjoint, forward, reorder) of the reference's
+    plan_tile_interp; (c) centered_fft_op(dtype=np.complex128). Returns
+    the K3 and K4 launches of (a)'s applies."""
+    import torch
+    from indigo_tpu_torch.models import centered_fft_op
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
+    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+
+    card = repr(card_line())
+    # (a) the radial lane's coil batch, complex64 on the card
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 11)
+    xs = torch.from_numpy((rng.standard_normal((G64.shape[1], RADIAL_NC))
+                           + 1j * rng.standard_normal(
+                               (G64.shape[1], RADIAL_NC))
+                           ).astype(np.complex64)).to("cuda")
+    launches, fields = {}, {}
+    for key, conv, kern in (("k3", csr_to_jag, jag_spmm_cuda),
+                            ("k4", csr_to_bell, ell_spmm_cuda)):
+        mat64 = conv(G64, dtype=np.float64).to("cuda")
+        k0, plain = kern.launches, spmm.plain_cuda_calls
+        y64 = spmm(mat64, xs)
+        torch.cuda.synchronize()
+        launches[key] = kern.launches - k0
+        plain = spmm.plain_cuda_calls - plain
+        same = torch.equal(y64, spmm(conv(G64).to("cuda"), xs))
+        if not (mat64.nz_val.dtype == torch.float32 and launches[key] == 1
+                and plain == 0 and same):
+            raise AssertionError(
+                f"{conv.__name__}(G_f64, dtype=np.float64): nz_val "
+                f"{mat64.nz_val.dtype}, {kern.__name__} launches "
+                f"{launches[key]}, plain calls {plain}, bitwise {same}")
+        fields[f"{kern.__name__}_ms"] = \
+            f"{queued_ms(lambda: spmm(mat64, xs), 50):.4f}"
+        del mat64, y64
+    log("boundary_f64_conversions", t0, card=card,
+        matrix=f"{G64.shape[0]}x{G64.shape[1]}", nnz=G64.nnz,
+        x=f"{tuple(xs.shape)} complex64", k3_launches=launches["k3"],
+        k4_launches=launches["k4"], plain_calls=0,
+        bitwise_vs_default=True, **fields)
+    del xs
+
+    # (b) the serving plan from the reference's keywords
+    t0 = time.time()
+    plans, build_s = {}, {}
+    for reorder in (False, True):
+        for forward in ("grouped", "dense"):
+            for adjoint in ("binned", "scatter"):
+                t = time.time()
+                plans[adjoint, forward, reorder] = plan_tile_interp(
+                    traj, grid, width=WIDTH, adjoint=adjoint,
+                    forward=forward, reorder=reorder)
+                build_s[adjoint, forward, reorder] = time.time() - t
+    base = plans["binned", "grouped", False]
+    order = group_major_order(base)
+    if np.array_equal(order, np.arange(base.n_samples)):
+        raise AssertionError("the serving kooshball is already group-major")
+
+    def same(p, perm=None):
+        idx = slice(None) if perm is None else perm
+        return (np.array_equal(p.tid, base.tid[idx])
+                and all(np.array_equal(w, wb[idx])
+                        for w, wb in zip(p.wfac, base.wfac, strict=True)))
+
+    for (adjoint, forward, reorder), p in plans.items():
+        want = order if reorder and forward == "grouped" else None
+        got = p.sample_perm
+        if not ((want is None and got is None) or (
+                want is not None and got is not None
+                and np.array_equal(got, want))) or not same(p, want):
+            raise AssertionError(
+                f"plan_tile_interp(adjoint={adjoint!r}, forward={forward!r}, "
+                f"reorder={reorder}) breaks the reference's rule: "
+                f"sample_perm {None if got is None else got[:4]}")
+    log("boundary_plan_keywords", t0, card=card, grid=f"{grid}",
+        samples=base.n_samples, S=base.S,
+        memusage_gb=f"{base.memusage() / 1e9:.3f}", plans=len(plans),
+        build_s=",".join(f"{a}/{f}/{int(r)}:{v:.3f}"
+                         for (a, f, r), v in build_s.items()),
+        equal_without_reorder=True, grouped_reorder_is_group_major=True,
+        dense_reorder_is_identity=True)
+    del plans, base
+
+    # (c) the centered FFT with a 64-bit dtype, on the tree lane's image
+    t0 = time.time()
+    F64 = centered_fft_op((N,) * 3, dtype=np.complex128)
+    F32 = centered_fft_op((N,) * 3, dtype=np.complex64)
+    assert_on_card(F64)
+    img = torch.from_numpy(phantom(N).reshape(-1, 1)).to("cuda")
+    y = F64 * img
+    same = y.dtype == torch.complex64 and torch.equal(y, F32 * img)
+    if not same:
+        raise AssertionError(f"centered_fft_op(dtype=np.complex128): "
+                             f"{y.dtype}, bitwise the complex64 op's: {same}")
+    log("boundary_centered_fft", t0, card=card, shape=f"{N}^3",
+        dtype=str(F64.dtype).replace("torch.", ""), bitwise_vs_complex64=True,
+        ms_per_apply=f"{timed(lambda: F64 * img, 10):.3f}")
+    del F64, F32, img, y
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2599,6 +2738,7 @@ def main():
     launches += boundary["k1"]
     k2_launches += boundary["k2"]
     k3_launches += boundary["k3"]
+    k4_launches += boundary["k4"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

@@ -33,7 +33,7 @@ from torch import nn
 
 from .sparse import (ElementELL, csr_to_bell, csr_to_element, csr_to_jag,
                      element_spmm, estimate_jag_bytes)
-from .utils import as_tensor, default_device
+from .utils import as_dtype, as_tensor, default_device
 
 __all__ = [
     "Operator",
@@ -45,13 +45,6 @@ __all__ = [
 
 def _is_scalar(v):
     return isinstance(v, (int, float, complex)) and not isinstance(v, bool)
-
-
-def _as_dtype(dt):
-    """A torch dtype from a torch or numpy dtype."""
-    if isinstance(dt, torch.dtype):
-        return dt
-    return torch.from_numpy(np.empty(0, np.dtype(dt))).dtype
 
 
 def _dtype_name(dt):
@@ -447,7 +440,7 @@ class UnscaledFFT(Operator):
                  device=None):
         super().__init__(name)
         self._vol = tuple(int(s) for s in vol_shape)
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
         self._record_device(device)
 
     @property
@@ -576,10 +569,15 @@ class GridDFT(CenteredDFT):
                 f"grid={grid}; use KBInterp * CenteredDFT instead")
         device = default_device(device)
         super().__init__(img_shape, grid, name, device)
+        self._plan = plan
         self._width = plan.width
         corner, wkb = kb_patches(plan)
         self.register_buffer("corner", as_tensor(corner, device))
         self.register_buffer("wkb", as_tensor(wkb, device))
+
+    @property
+    def plan(self):
+        return self._plan
 
     @property
     def shape(self):
@@ -617,7 +615,7 @@ class Eye(Operator):
     def __init__(self, n, dtype=torch.complex64, name=None, device=None):
         super().__init__(name)
         self._n = int(n)
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
         self._record_device(device)
 
     @property
@@ -643,7 +641,7 @@ class One(Operator):
                  device=None):
         super().__init__(name)
         self._shape = (int(shape[0]), int(shape[1]))
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
         self._record_device(device)
 
     @property
@@ -680,7 +678,7 @@ class Perm(Operator):
         inv[perm] = np.arange(len(perm))
         self.register_buffer("p", as_tensor(perm, device))
         self.register_buffer("ip", as_tensor(inv, device))
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
 
     @property
     def shape(self):
@@ -724,7 +722,7 @@ class Mask(Operator):
             raise ValueError("keep indices must be unique")
         self.register_buffer("_keep", as_tensor(keep, device))
         self._n = n
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
 
     @classmethod
     def from_bool(cls, mask, dtype=torch.complex64, name=None, device=None):
@@ -771,7 +769,7 @@ class CropPad(Operator):
         for a, b in zip(self._in, self._out):
             if a > b:
                 raise ValueError("in_shape must fit inside out_shape")
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
         self._record_device(device)
 
     @property

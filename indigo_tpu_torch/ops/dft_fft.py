@@ -17,6 +17,8 @@ axis last, so nd stages cycle the axes back into their original order.
 Precision: the products run in full float32. On CUDA the stages switch off
 TF32 for matrix products (``torch.backends.cuda.matmul.allow_tf32``), which
 would keep only ~3 decimal digits and break the 1e-5 operator-level bar.
+The applies take the reference's ``precision`` argument (its TPU matmul
+knob) and ignore it: the f32 stages run with TF32 off whatever is passed.
 """
 from __future__ import annotations
 
@@ -124,7 +126,7 @@ def _stage(x, M):
     return torch.einsum(f"{sub},ml->{out}", x, M)
 
 
-def dft_nd_apply(x, mats):
+def dft_nd_apply(x, mats, precision="highest"):
     """Apply per-axis matrices to x (K, *dims): mats[d] is (out_d, dims[d])
     complex64 on x's device; axes return to their original order."""
     for M in mats:
@@ -132,7 +134,7 @@ def dft_nd_apply(x, mats):
     return x
 
 
-def fft_pad2x_block(x):
+def fft_pad2x_block(x, precision="highest"):
     """FFT of x zero-padded 2x along all trailing (image) axes, frequencies
     in block (even|odd) layout per axis. x: (batch, *img) complex."""
     x = x.to(torch.complex64)
@@ -142,7 +144,7 @@ def fft_pad2x_block(x):
     return x
 
 
-def ifft_crop2x_block(X):
+def ifft_crop2x_block(X, precision="highest"):
     """First N outputs (per axis) of the inverse FFT of a block-layout 2N
     spectrum. X: (batch, *2img) complex -> (batch, *img)."""
     for _ in range(X.dim() - 1):
@@ -151,7 +153,7 @@ def ifft_crop2x_block(X):
     return X
 
 
-def toeplitz_apply_block(Tfb, v):
+def toeplitz_apply_block(Tfb, v, precision="highest"):
     """crop(IFFT(Tfb * FFT(pad_2x(v)))) with Tfb in block layout.
 
     v: (batch, *img) complex64 tensor; Tfb: (*2img) float32 tensor.

@@ -1,11 +1,12 @@
 """Kaiser-Bessel gridding G and its adjoint (torch), from a host tile plan.
 
 Counterpart of ``indigo_tpu/ops/tile_interp.py``. The host plan
-(:func:`plan_tile_interp`) is a numpy copy of the reference's, restricted
-to ``adjoint="scatter"`` and ``forward="dense"``: same per-sample tile ids
-``tid``, factored KB weights ``wfac``, geometry and — with ``reorder=True`` —
-the same group-major sample permutation, so sample order (and with it the
-user-order I/O of the SENSE pipeline) is identical to the reference's.
+(:func:`plan_tile_interp`) is a numpy copy of the reference's in its
+``adjoint="scatter"``, ``forward="dense"`` form: same per-sample tile ids
+``tid``, factored KB weights ``wfac``, geometry and — with ``reorder=True``
+under the default ``forward="grouped"`` — the same group-major sample
+permutation, so sample order (and with it the user-order I/O of the SENSE
+pipeline) is identical to the reference's.
 
 The reference's tile-binned adjoint and span-grouped forward were built
 around the cost of TPU scatters and row gathers; they are not ported. The
@@ -36,6 +37,12 @@ __all__ = ["TileInterpPlan", "plan_tile_interp", "kb_patches", "kb_gather",
 # expanded-scratch bound of one sample chunk, in float32 elements (256 MB)
 _SCRATCH_ELEMS = 1 << 26
 
+_NO_TILED_LAYOUT = (
+    "the reference's tile-binned adjoint layout (TileAdjBins, bin_layout) "
+    "and span-grouped forward groups (FwdGroups) are the TPU's 128-lane "
+    "tiled-grid layout, which the port does not build: it grids on the "
+    "natural-order grid (kb_gather / kb_scatter)")
+
 
 class TileInterpPlan:
     """Host-built tile geometry (numpy), the reference plan's dense form.
@@ -44,10 +51,14 @@ class TileInterpPlan:
     (M, n_d, t_d) float32, per-axis KB weights scattered into super-tile
     extent position; grid_shape, tile, ext (halo-extended dims), nt (tiles
     per axis), pad_lo (halo below), width; sample_perm (None when identity).
+    The reference's ``bins`` and ``fgroups`` are accepted as None only.
     """
 
     def __init__(self, tid, wfac, grid_shape, tile, ext, nt, pad_lo, width,
-                 sample_perm=None):
+                 bins=None, fgroups=None, sample_perm=None):
+        if bins is not None or fgroups is not None:
+            raise ValueError(f"TileInterpPlan(bins=, fgroups=): "
+                             f"{_NO_TILED_LAYOUT}")
         self.tid = np.asarray(tid)
         self.wfac = tuple(np.asarray(w) for w in wfac)
         self.sample_perm = sample_perm
@@ -62,18 +73,38 @@ class TileInterpPlan:
     def n_samples(self):
         return self.tid.shape[0]
 
+    @property
+    def S(self):
+        return self.tid.shape[1]
+
+    def memusage(self):
+        """Bytes of the plan's arrays, ``tid`` and ``wfac``."""
+        return self.tid.nbytes + sum(int(w.nbytes) for w in self.wfac)
+
 
 def plan_tile_interp(traj, grid_shape, width=4, beta=None, tile=None,
-                     reorder=False):
+                     adjoint="binned", forward="grouped", reorder=False,
+                     bin_layout=None):
     """Build a :class:`TileInterpPlan` (host-side, vectorized numpy).
 
-    Same geometry and weights as ``indigo_tpu.ops.tile_interp.
-    plan_tile_interp(..., adjoint="scatter")``. ``reorder=True`` applies the
-    reference's group-major sample permutation (the one its default grouped
-    forward uses), exposed as ``plan.sample_perm``; the caller composes it
-    into its own sample mapping.
+    The reference's signature and defaults. Every ``adjoint`` in
+    {"binned", "scatter"} and ``forward`` in {"grouped", "dense"} builds the
+    port's one plan, the reference's scatter/dense form: same geometry and
+    weights. ``forward`` still decides the sample order, as there:
+    ``reorder=True`` applies the reference's group-major permutation only
+    under ``forward="grouped"`` and leaves the order alone under
+    ``"dense"``; the permutation is exposed as ``plan.sample_perm`` (None
+    when identity) and the caller composes it into its own sample mapping.
+    ``adjoint="layout"`` and a ``bin_layout`` ask for the TPU's tiled bin
+    layout and raise ValueError.
     """
     from ..noncart import kaiser_bessel, beatty_beta
+
+    if forward not in ("grouped", "dense"):
+        raise ValueError(f"plan_tile_interp: unknown forward={forward!r}")
+    if adjoint not in ("binned", "scatter") or bin_layout is not None:
+        raise ValueError(f"plan_tile_interp(adjoint={adjoint!r}, "
+                         f"bin_layout=...): {_NO_TILED_LAYOUT}")
 
     traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
     M, nd = traj.shape
@@ -129,7 +160,7 @@ def plan_tile_interp(traj, grid_shape, width=4, beta=None, tile=None,
                        & (off_in[:, None] + width > j[None, :] * t))
 
     sample_perm = None
-    if reorder:
+    if reorder and forward == "grouped":
         # group-major order by per-axis span counts (reference: the grouped
         # forward's sample order, plan_tile_interp(reorder=True))
         code = np.zeros(M, dtype=np.int64)

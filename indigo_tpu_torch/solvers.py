@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .operators import Operator
-from .utils import as_tensor, default_device
+from .utils import as_dtype, as_tensor, default_device
 
 __all__ = ["cg", "apgd", "fista", "max_eigen", "soft_thresh"]
 
@@ -207,11 +207,14 @@ def max_eigen(A, n, iters=30, key=None, dtype=torch.complex64, device=None):
     ``key``: a ``torch.Generator`` or an int seed (None: seed 0) for the
     start vector, which is drawn on the host and moved; the stream differs
     from the reference's, so the two agree on the eigenvalue, not on the
-    vector. ``device``: where the iteration runs; by default the operator's
-    device (a callable or an operator without arrays: the card).
+    vector. ``dtype``: a torch or numpy dtype, 64-bit narrowed to 32-bit
+    (``utils.as_dtype``). ``device``: where the iteration runs; by default
+    the operator's device (a callable or an operator without arrays: the
+    card).
     """
     mv = _as_matvec(A)
     device = _place(A, device)
+    dtype = as_dtype(dtype)
     gen = key
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(0 if key is None else int(key))

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from .ops.dft_fft import full_f32_matmul
+from .utils import NARROW
 
 __all__ = [
     "BlockedELL", "csr_to_bell", "bell_spmm", "bell_to_csr",
@@ -47,7 +48,12 @@ __all__ = [
 
 
 def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
+    """A host array as a tensor; a 64-bit float or complex one (the
+    converters' ``dtype=np.float64``) narrowed as ``utils.as_tensor``
+    narrows, after it was built and summed in 64-bit as the reference's."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.astype(NARROW.get(a.dtype, a.dtype),
+                                     copy=False))
 
 
 def _np(t):

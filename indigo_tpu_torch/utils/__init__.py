@@ -26,6 +26,22 @@ NARROW = {np.dtype(np.float64): np.dtype(np.float32),
           np.dtype(np.complex128): np.dtype(np.complex64)}
 
 
+def as_dtype(dt):
+    """A torch dtype from a torch or numpy dtype, by the same rule: a
+    64-bit float or complex dtype becomes its 32-bit pair, as a ``dtype=``
+    handed to the reference becomes 32-bit in JAX's default mode."""
+    if not isinstance(dt, torch.dtype):
+        dt = _torch_dtype(dt)
+    return _NARROW_TORCH.get(dt, dt)
+
+
+def _torch_dtype(dt):
+    return torch.from_numpy(np.empty(0, np.dtype(dt))).dtype
+
+
+_NARROW_TORCH = {_torch_dtype(k): _torch_dtype(v) for k, v in NARROW.items()}
+
+
 def default_device(device=None):
     """``device`` as a ``torch.device``; None means the card. Raises when
     it means the card and there is none: the port never falls back to the

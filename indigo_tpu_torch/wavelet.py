@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .operators import Operator, _as_dtype
+from .operators import Operator
 from .ops.dft_fft import full_f32_matmul
-from .utils import as_tensor, default_device
+from .utils import as_dtype, as_tensor, default_device
 
 __all__ = ["DWT", "WAVELETS"]
 
@@ -103,7 +103,7 @@ class DWT(Operator):
                 self.register_buffer(
                     f"w{lv}_{ax}",
                     as_tensor(_analysis_matrix(s >> lv, h), device))
-        self._dtype = _as_dtype(dtype)
+        self._dtype = as_dtype(dtype)
 
     @property
     def vol_shape(self):

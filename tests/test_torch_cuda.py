@@ -303,6 +303,40 @@ def test_set_spmm_impl_jnp_launches_no_k3(cuda):
         set_spmm_impl("auto")
 
 
+def test_float64_conversions_run_the_kernels(cuda):
+    """csr_to_jag / csr_to_bell(A_f64, dtype=np.float64) narrow to float32:
+    one K3 / K4 launch per apply, none of the plain version, and the
+    default conversion's result bitwise."""
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+
+    rng = np.random.default_rng(14)
+    A = _sparse(rng, 257, 640, 0.01).astype(np.float64)
+    x = torch.from_numpy(rand64c(640, 4, rng=rng)).to(cuda)
+    for conv, kern in ((csr_to_jag, jag_spmm_cuda),
+                       (csr_to_bell, ell_spmm_cuda)):
+        mat = conv(A, dtype=np.float64).to(cuda)
+        assert mat.nz_val.dtype == torch.float32
+        k0, plain = kern.launches, spmm.plain_cuda_calls
+        y = spmm(mat, x)
+        torch.cuda.synchronize()
+        assert (kern.launches - k0, spmm.plain_cuda_calls - plain) == (1, 0)
+        assert torch.equal(y, spmm(conv(A).to(cuda), x))
+
+
+def test_max_eigen_numpy_dtype_on_the_card(cuda):
+    import indigo_tpu_torch as tit
+
+    rng = np.random.default_rng(15)
+    B = rand64c(6, 6, rng=rng)
+    A = tit.DenseMatrix(B @ B.conj().T)
+    assert A.A.is_cuda
+    lam = tit.max_eigen(A, 6, iters=50, dtype=np.complex64)
+    assert lam.is_cuda and lam.dtype == torch.float32
+    assert torch.equal(lam, tit.max_eigen(A, 6, iters=50))
+
+
 def test_spmm_kernels_reject_what_they_do_not_take(cuda):
     """Wrong dtypes, layouts, devices and shapes raise before any launch;
     any bm now runs (the kernel reads the row form, not the tiles)."""

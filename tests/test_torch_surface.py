@@ -1,5 +1,6 @@
 """The port's public surface against the reference's: ``Operator * ndarray``
-(1e-5), the names the reference's ``__init__`` files export, and the
+(1e-5), the names the reference's ``__init__`` files export, every
+parameter name of every reference callable and public method, and the
 reference-shaped calls with TPU-only knobs, which the port accepts.
 """
 import numpy as np
@@ -191,6 +192,116 @@ def test_every_reference_export_resolves_or_is_dropped(module):
     assert not missing, (module, missing)
 
 
+# every reference parameter name is taken by the port ---------------------
+
+# what the port leaves out of the reference's call forms, each with its
+# reason: (module, callable) -> (parameter names, or None for the whole
+# method, reason). The names in DROPPED are left out with their module's.
+_PYTREE = ("JAX's pytree protocol; the port's operators, formats and plans "
+           "are nn.Modules or plain host objects")
+_MATS = ("private: the reference's unflatten hands its prebuilt DFT "
+         "matrices back in; the port's leaf keeps them as buffers")
+SIGNATURE_DROPPED = {
+    "tree_flatten": (None, _PYTREE),        # on every class that has it
+    "tree_unflatten": (None, _PYTREE),
+    ("sparse", "BlockedJag.smem_ok"): (
+        None, "whether the block index arrays fit the TPU's SMEM; a CUDA "
+        "kernel has no such budget (csr_to_jag keeps its auto_bm rule)"),
+    ("operators", "CenteredDFT"): ({"_mats"}, _MATS),   # its constructor
+    ("operators", "GridDFT"): ({"_mats"}, _MATS),
+}
+# Not a difference of name: max_eigen(key=) takes an int seed or a
+# torch.Generator where the reference takes a PRNGKey.
+
+
+def _signature_cases():
+    """(module, callable) for every callable in every reference __all__
+    (a class: its constructor and properties) and every public method of
+    its classes, ``Class.method``."""
+    import importlib
+    import inspect
+    cases = []
+    for module in REFERENCE_MODULES:
+        if COUNTERPART.get(module, module) is None:
+            continue
+        ref = importlib.import_module(f"indigo_tpu.{module}")
+        for name in ref.__all__:
+            obj = getattr(ref, name)
+            if (module, name) in DROPPED or not callable(obj):
+                continue
+            cases.append((module, name))
+            if inspect.isclass(obj):
+                cases += [(module, f"{name}.{m}") for m in dir(obj)
+                          if not m.startswith("_")
+                          and not isinstance(inspect.getattr_static(obj, m),
+                                             property)
+                          and callable(getattr(obj, m))]
+    return cases
+
+
+def _parameters(fn):
+    """(names, takes **kwargs) of fn's signature."""
+    import inspect
+    ps = inspect.signature(fn).parameters.values()
+    return ({p.name for p in ps if p.kind not in (p.VAR_POSITIONAL,
+                                                  p.VAR_KEYWORD)},
+            any(p.kind == p.VAR_KEYWORD for p in ps))
+
+
+def _instances():
+    """A port instance of each class whose reference properties are
+    instance attributes in the port."""
+    from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
+    D = tit.Diag(np.ones(4), device="cpu")
+    plan = plan_tile_interp(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (30, 2)), (16, 16), width=4, beta=6.5)
+    return {"GridDFT": lambda: tit.GridDFT(plan, (8, 8), device="cpu"),
+            "Product": lambda: D * D, "Adjoint": lambda: tit.Adjoint(D),
+            "KronI": lambda: tit.KronI(2, D),
+            "BlockDiag": lambda: tit.BlockDiag([D, D]),
+            "VStack": lambda: tit.VStack([D, D]),
+            "HStack": lambda: tit.HStack([D, D]),
+            "Scale": lambda: tit.Scale(2.0, D)}
+
+
+@pytest.mark.parametrize("module,qualname", _signature_cases(),
+                         ids=lambda v: v)
+def test_every_reference_parameter_is_accepted(module, qualname):
+    """Each parameter name of the reference callable is one the port's
+    counterpart takes, and each property of a reference class exists on the
+    port's class or instance; else it stands in SIGNATURE_DROPPED."""
+    import importlib
+    import inspect
+    ref = importlib.import_module(f"indigo_tpu.{module}")
+    port = importlib.import_module(
+        f"indigo_tpu_torch.{COUNTERPART.get(module, module)}")
+    name, _, method = qualname.partition(".")
+    r, p = getattr(ref, name), getattr(port, name)
+    dropped, reason = SIGNATURE_DROPPED.get(
+        method, SIGNATURE_DROPPED.get((module, qualname), (set(), None)))
+    if method:
+        if dropped is None:
+            assert reason and not hasattr(p, method), qualname
+            return
+        r, p = getattr(r, method), getattr(p, method, None)
+        assert p is not None, f"{qualname} is missing in the port"
+    elif inspect.isclass(r):
+        missing = [a for a in dir(r) if not a.startswith("_")
+                   and isinstance(inspect.getattr_static(r, a), property)
+                   and not hasattr(p, a)]
+        if missing:
+            inst = _instances()[name]()
+            missing = [a for a in missing if not hasattr(inst, a)]
+        assert not missing, (qualname, missing)
+        r, p = r.__init__, (p.__init__ if inspect.isclass(p) else p)
+    want, _ = _parameters(r)
+    have, any_kw = _parameters(p)
+    missing = sorted(want - have - dropped) if not any_kw else []
+    assert not missing, (qualname, missing)
+    assert not dropped or (dropped <= want and not dropped & have and
+                           reason), (qualname, dropped)
+
+
 def test_set_spmm_impl_and_use_pallas_match_the_reference(rng):
     """The reference's names: every impl gives the reference's product on
     the same tiles (1e-5); use_pallas says whether the kernels serve."""
@@ -319,6 +430,86 @@ def test_tile_interp_apply_takes_the_reference_call(rng, grid):
     assert out.dtype == torch.float32
     assert rel_err(out, np.asarray(jti.tile_interp_apply(
         jp, jnp.asarray(xr)))) < 1e-5
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+@pytest.mark.parametrize("adjoint,forward", [
+    ("binned", "grouped"), ("binned", "dense"), ("scatter", "grouped"),
+    ("scatter", "dense")])
+def test_plan_tile_interp_takes_the_reference_keywords(adjoint, forward,
+                                                       reorder):
+    """Each (adjoint, forward, reorder) gives the reference plan's tid, wfac
+    and sample_perm, array-equal: reorder permutes only under the grouped
+    forward. On a grid with a halo axis (20 % 8) and periodic ones."""
+    from indigo_tpu.ops import tile_interp as jti
+    from indigo_tpu_torch.ops import tile_interp as tti
+    traj = np.random.default_rng(3).uniform(-0.5, 0.5, size=(300, 3))
+    kw = dict(width=4, beta=6.5, adjoint=adjoint, forward=forward,
+              reorder=reorder)
+    tp = tti.plan_tile_interp(traj, (20, 20, 20), **kw)
+    jp = jti.plan_tile_interp(traj, (20, 20, 20), **kw)
+    np.testing.assert_array_equal(tp.tid, np.asarray(jp.tid))
+    for wt, wj in zip(tp.wfac, jp.wfac, strict=True):
+        np.testing.assert_array_equal(wt, np.asarray(wj))
+    if reorder and forward == "grouped":
+        assert jp.sample_perm is not None
+        np.testing.assert_array_equal(tp.sample_perm, jp.sample_perm)
+    else:
+        assert tp.sample_perm is None and jp.sample_perm is None
+    assert tp.S == jp.S == tp.tid.shape[1]
+    if (adjoint, forward) == ("scatter", "dense"):
+        assert tp.memusage() == jp.memusage()
+
+
+@pytest.mark.parametrize("call", ["adjoint='layout'", "adjoint='other'",
+                                  "bin_layout=...", "TileInterpPlan(bins=)",
+                                  "TileInterpPlan(fgroups=)"])
+def test_tiled_bin_layout_is_refused(call):
+    """What asks for the reference's tiled bin layout raises and says so."""
+    from indigo_tpu_torch.ops import tile_interp as tti
+    traj = np.random.default_rng(4).uniform(-0.5, 0.5, size=(40, 2))
+    p = tti.plan_tile_interp(traj, (16, 16), width=4)
+    make = {
+        "adjoint='layout'": lambda: tti.plan_tile_interp(
+            traj, (16, 16), adjoint="layout"),
+        "adjoint='other'": lambda: tti.plan_tile_interp(
+            traj, (16, 16), adjoint="other"),
+        "bin_layout=...": lambda: tti.plan_tile_interp(
+            traj, (16, 16), adjoint="binned", bin_layout=((1, 2),)),
+        "TileInterpPlan(bins=)": lambda: tti.TileInterpPlan(
+            p.tid, p.wfac, p.grid_shape, p.tile, p.ext, p.nt, p.pad_lo,
+            p.width, bins=object()),
+        "TileInterpPlan(fgroups=)": lambda: tti.TileInterpPlan(
+            p.tid, p.wfac, p.grid_shape, p.tile, p.ext, p.nt, p.pad_lo,
+            p.width, fgroups=object()),
+    }[call]
+    with pytest.raises(ValueError, match=_TILED.split(";")[0]):
+        make()
+
+
+def _dft_fft_calls(rng):
+    from indigo_tpu_torch.ops import dft_fft as tdft
+    v = torch.from_numpy(rand64c(2, 8, 8, 16, rng=rng))
+    Tfb = torch.from_numpy(rng.standard_normal((16, 16, 32)).astype(
+        np.float32))
+    mats = [torch.from_numpy(tdft.centered_pad_dft_mat(n, 2 * n))
+            for n in (8, 8, 16)]
+    V = tdft.fft_pad2x_block(v)
+    return {"dft_nd_apply": lambda **k: tdft.dft_nd_apply(v, mats, **k),
+            "fft_pad2x_block": lambda **k: tdft.fft_pad2x_block(v, **k),
+            "ifft_crop2x_block": lambda **k: tdft.ifft_crop2x_block(V, **k),
+            "toeplitz_apply_block": lambda **k: tdft.toeplitz_apply_block(
+                Tfb, v, **k)}
+
+
+@pytest.mark.parametrize("name", ["dft_nd_apply", "fft_pad2x_block",
+                                  "ifft_crop2x_block",
+                                  "toeplitz_apply_block"])
+def test_dft_fft_takes_and_ignores_precision(rng, name):
+    call = _dft_fft_calls(rng)[name]
+    want = call()
+    for precision in ("highest", "default"):
+        assert torch.equal(call(precision=precision), want), precision
 
 
 def test_sense_normal_batched_takes_the_reference_layout_name(rng):

@@ -183,6 +183,39 @@ raises and exits non-zero):
      only (S, GB and build seconds printed); centered_fft_op(256^3,
      dtype=np.complex128) returns complex64, bitwise the complex64 op's.
      Its launches are added to the kernels line.
+  12. gradients (each part on the objects of the lane it differentiates,
+     right after that lane's phase; the K1/K2 part last), one line each with
+     the card's name and power limit:
+     (c) after phase 3, the main path differentiated: L = |x - x_true|^2 of
+         SenseRecon(y, output="device") at the serving size with y a k-space
+         tensor that requires grad, then backward. Checks: the gradient is
+         finite; 20 K1 calls forward and 20 backward; no plain call; at the
+         noisy y and at the noise-free y0, a central difference along one
+         seeded direction at each of FD_STEPS against Re<grad, d> (all
+         printed), the smallest within FD_TOL. Prints the warm forward s,
+         the forward with its graph and the backward, first and warm, the
+         peak GB, and a [profile] line of one forward with its graph and its
+         backward;
+     (a) after phase 5, K3 on G and G^H at 256^2 (SpMatrix) and K4 at 128^2
+         (format "bell"), each direction; at the end K1 at 256^3 / nc 4 and
+         K2 at 256^3 / B 8: autograd's gradient bitwise the explicit adjoint
+         call on the same cotangent, one kernel call per backward, no plain
+         call, within 1e-4 (K1/K2) / 1e-5 (K3/K4) of the plain version's
+         autograd on the card (K1/K2 at 256^3 where the card holds the
+         plain version's saved stages, else at 128^3; the line says which);
+         forward and backward ms;
+     (b) after phases 5 and 6c, the silent case: the gradient of
+         |(N + lam I) x - b|^2 against 2 (N + lam I)((N + lam I) x - b)
+         from explicit applies (<= 1e-5), on the radial N = A.H * A (K3)
+         and on the 3D tree (K2). ``f9_reading()`` prints the same two
+         readings held to no bar, for a tree whose kernels cut the graph;
+     (d) after (b) on the radial lane, what the Function would cost the
+         host-bound solve: warm 256^2 solves as shipped (no grad, so the
+         bare K3 launch) and with every launch forced through _SpmmFn,
+         alternating; medians and the difference per solve and per launch
+         (not counted below).
+     Their forward and backward launches are added to the kernels line.
+     phase_gradients() runs the same parts alone, building each lane.
 After the counted runs, one warm solve of each path runs under
 torch.profiler ([profile] lines: device time by kernel, busy share; for the
 radial solve also K3's share and the launches per CG iteration).
@@ -195,6 +228,7 @@ import re
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -550,9 +584,28 @@ def small_path_check():
         rel_err_gpu_vs_cpu=f"{err:.3e}")
 
 
+def serving_data(recon, x_true):
+    """The serving lane's k-space: the noise-free y0 and three noisy
+    acquisitions, complex white noise at 1 % of the k-space RMS (40 dB
+    SNR) from seed SEED + 1."""
+    y0 = recon.simulate(x_true)
+    rng = np.random.default_rng(SEED + 1)
+    sigma = 0.01 * float(np.sqrt(np.mean(np.abs(y0) ** 2) / 2))
+    return y0, [y0 + sigma * (rng.standard_normal(y0.shape, dtype=np.float32)
+                              + 1j * rng.standard_normal(y0.shape,
+                                                         dtype=np.float32))
+                for _ in range(3)]
+
+
+def serving_recon(traj, maps):
+    """The serving lane's SenseRecon on the card."""
+    from indigo_tpu_torch.models import SenseRecon
+    return SenseRecon(traj, maps, oversamp=OVERSAMP, width=WIDTH,
+                      iters=ITERS, coil_chunk=COIL_CHUNK, device="cuda")
+
+
 def phase_main_path():
     import torch
-    from indigo_tpu_torch.models import SenseRecon
     from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
         LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
@@ -570,8 +623,7 @@ def phase_main_path():
     sense_normal_reference.cuda_calls = 0
     spmm.plain_cuda_calls = 0
     t0 = time.time()
-    recon = SenseRecon(traj, maps, oversamp=OVERSAMP, width=WIDTH,
-                       iters=ITERS, coil_chunk=COIL_CHUNK, device="cuda")
+    recon = serving_recon(traj, maps)
     torch.cuda.synchronize()
     if recon.layout != "kernel":
         raise AssertionError(f"main path layout {recon.layout}")
@@ -581,14 +633,7 @@ def phase_main_path():
 
     t0 = time.time()
     x_true = phantom(N)
-    y0 = recon.simulate(x_true)
-    rng = np.random.default_rng(SEED + 1)
-    # complex white noise at 1% of the k-space RMS (40 dB SNR)
-    sigma = 0.01 * float(np.sqrt(np.mean(np.abs(y0) ** 2) / 2))
-    ys = [y0 + sigma * (rng.standard_normal(y0.shape, dtype=np.float32)
-                        + 1j * rng.standard_normal(y0.shape,
-                                                   dtype=np.float32))
-          for _ in range(3)]
+    y0, ys = serving_data(recon, x_true)
     log("simulate", t0, samples=y0.shape[0])
 
     per_solve = LAUNCHES_PER_CALL * ITERS * (NC // COIL_CHUNK)
@@ -638,7 +683,8 @@ def phase_main_path():
           flush=True)
     launches = sense_normal_cuda.launches
     profile_solve("serving", lambda: recon(ys[1]))
-    return launches, min(times[1:]) / ITERS
+    return launches, min(times[1:]) / ITERS, dict(
+        recon=recon, y0=y0, y=ys[1], x_true=x_true)
 
 
 RADIAL_N, RADIAL_NC, RADIAL_ITERS, RADIAL_LAMDA = 256, 8, 30, 0.1
@@ -2704,16 +2750,484 @@ def boundary_call_forms(traj, grid, G64):
     return launches
 
 
+# ---- phase 12: gradients through the kernels -------------------------------
+
+GRAD_TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-5, "K4": 1e-5}
+SILENT_TOL = 1e-5
+# the central difference's steps (relative to |y|), and the bar on the
+# smallest of its errors against the gradient, on a noisy acquisition and
+# on the noise-free y0. The loss is quadratic in x, so only CG's
+# nonlinearity in y errs at large steps; f32 rounding of x errs at small
+# ones. The H100 read smallest errors of 3.5e-4 to 3.9e-4 (noisy, step
+# 1e-2) and 9.4e-3 (noise-free, step 3e-3; 1.15e-2 at 1e-2, 3.7e-2 at 1e-3)
+FD_STEPS = (3e-2, 1e-2, 3e-3, 1e-3, 3e-4, 1e-4)
+FD_TOL = {"noisy": 2e-3, "noise_free": 2e-2}
+# phase 12d: interleaved pairs of warm radial solves, through _SpmmFn and bare
+FN_COST_PAIRS = 10
+
+
+def kernel_launches():
+    from indigo_tpu_torch.ops.dft_cuda import (
+        sense_normal_cuda, toeplitz_apply_cuda)
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    return dict(k1=sense_normal_cuda.launches, k2=toeplitz_apply_cuda.launches,
+                k3=jag_spmm_cuda.launches, k4=ell_spmm_cuda.launches)
+
+
+def plain_calls_on_card():
+    """Calls of the plain versions on CUDA tensors since reset_counts()."""
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.dft_cuda import (
+        sense_normal_reference, toeplitz_apply_reference)
+    return (sense_normal_reference.cuda_calls
+            + toeplitz_apply_reference.cuda_calls + spmm.plain_cuda_calls)
+
+
+def sq_norm(z):
+    """sum |z|^2 of a complex tensor, in float64, differentiable."""
+    import torch
+    return torch.view_as_real(z).double().pow(2).sum()
+
+
+def grad_of(f, x, g):
+    """Autograd's gradient of f at x on the cotangent g."""
+    v = x.clone().requires_grad_()
+    f(v).backward(g)
+    return v.grad
+
+
+def grad_check(name, kern, per_call, fwd, adj, x, g, timer, label,
+               **fields):
+    """Phase 12a, one kernel in one direction: autograd's gradient of fwd at
+    x on the cotangent g is bitwise adj(g), the explicit adjoint call; the
+    forward and the backward each make one kernel call (``per_call``
+    launches) and no plain call. Prints the forward ms (through the
+    Function) beside the backward ms (``timer``). Returns the launches of
+    the forward and backward."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    reset_counts()
+    v = x.clone().requires_grad_()
+    out = fwd(v)
+    k_fwd = kern.launches
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches, plain = kern.launches, plain_calls_on_card()
+    if (k_fwd, launches - k_fwd, plain) != (per_call, per_call, 0):
+        raise AssertionError(f"{name} gradient at {label}: {k_fwd} forward "
+                             f"and {launches - k_fwd} backward launches, "
+                             f"{plain} plain calls")
+    if v.grad.dtype != x.dtype or not torch.equal(v.grad, adj(g)):
+        raise AssertionError(f"{name} gradient at {label} is not bitwise "
+                             "the explicit adjoint call")
+    fwd_ms = timer(lambda: fwd(v))
+    out = fwd(v)
+
+    def backward():
+        v.grad = None
+        out.backward(g, retain_graph=True)
+    bwd_ms = timer(backward)
+    log("grad_kernel", t0, kernel=name, at=label, launches_fwd=k_fwd,
+        launches_bwd=launches - k_fwd, plain_calls=plain,
+        bitwise_vs_adjoint_call=True, **fields, fwd_ms=f"{fwd_ms:.4f}",
+        bwd_ms=f"{bwd_ms:.4f}", card=repr(card_line()))
+    return launches
+
+
+def grad_toeplitz_kernels():
+    """Phase 12a for K1 (256^3, nc 4) and K2 (256^3, B 8) on a random
+    spectrum, maps, operand and cotangent made on the card from the seed.
+    The plain version's autograd is compared at 256^3 where the card holds
+    its saved doubled-grid stages, else at 128^3 (the line says which).
+    Returns the launches by kernel."""
+    import torch
+    from indigo_tpu_torch.ops.dft_cuda import (
+        LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference,
+        toeplitz_apply_cuda, toeplitz_apply_reference)
+    from indigo_tpu_torch.utils import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def inputs(n, B, nc):
+        c = dict(generator=gen, device="cuda", dtype=torch.complex64)
+        T = torch.rand((2 * n,) * 3, generator=gen, device="cuda")
+        ops = (T,) if nc is None else (T, torch.randn((nc,) + (n,) * 3, **c))
+        return ops, torch.randn((B,) + (n,) * 3, **c), \
+            torch.randn((B,) + (n,) * 3, **c)
+
+    out = {}
+    for key, kern, plain, B, nc in (
+            ("K1", sense_normal_cuda, sense_normal_reference, 1, 4),
+            ("K2", toeplitz_apply_cuda, toeplitz_apply_reference, 8, None)):
+        err = None
+        for n in (N, 128):
+            ops, x, g = inputs(n, B, nc)
+            try:
+                err = rel_err(grad_of(partial(kern, *ops), x, g),
+                              grad_of(partial(plain, *ops), x, g))
+            except torch.cuda.OutOfMemoryError:
+                pass
+            if err is not None:
+                break
+            del ops, x, g
+            torch.cuda.empty_cache()
+        if err is None or not err <= GRAD_TOL[key]:
+            raise AssertionError(f"{key} gradient vs the plain version's "
+                                 f"autograd at {n}^3: rel_err {err:.3e}")
+        if n != N:
+            ops, x, g = inputs(N, B, nc)
+        f = partial(kern, *ops)
+        out[key.lower()] = grad_check(
+            key, kern, LAUNCHES_PER_CALL, f, f, x, g, partial(timed, reps=5),
+            f"{N}^3 " + (f"B {B}" if nc is None else f"nc {nc}"),
+            rel_err_vs_plain_autograd=f"{err:.3e}",
+            plain_autograd_at=f"{n}^3")
+        del ops, x, g, f
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_spmm(ops):
+    """Phase 12a for K3 (the radial lane's G, jag, at 256^2) and K4 (G as
+    blocked-ELL at 128^2), each forward and adjoint through SpMatrix, on
+    complex operands of the lane's 8 coil columns; the plain version's
+    autograd on the card within 1e-5. Returns the launches by kernel."""
+    import torch
+    from indigo_tpu_torch.operators import SpMatrix
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import bell_spmm, jag_spmm, jag_to_csr
+    from indigo_tpu_torch.utils import rel_err
+
+    _, _, G = gridding_leaf(ops[RADIAL_N])
+    _, _, G128 = gridding_leaf(ops[128])
+    Gb = SpMatrix(jag_to_csr(G128.ell), format="bell", device="cuda")
+    rng = np.random.default_rng(SEED + 12)
+    out = {"k3": 0, "k4": 0}
+    for key, op, n, kern, plain in (
+            ("K3", G, RADIAL_N, jag_spmm_cuda, jag_spmm),
+            ("K4", Gb, 128, ell_spmm_cuda, bell_spmm)):
+        for adjoint in (False, True):
+            rows, cols = op.shape[::-1] if adjoint else op.shape
+            x, g = (torch.from_numpy(
+                (rng.standard_normal((m, 2 * RADIAL_NC), dtype=np.float32)
+                 .view(np.complex64))).to("cuda") for m in (cols, rows))
+            fwd = partial(op.apply, adjoint=adjoint)
+            E = op.ellH if adjoint else op.ell
+            err = rel_err(grad_of(fwd, x, g), grad_of(partial(plain, E), x, g))
+            label = f"{'G^H' if adjoint else 'G'} {n}^2"
+            if not err <= GRAD_TOL[key]:
+                raise AssertionError(f"{key} gradient at {label} vs the "
+                                     f"plain version's autograd: {err:.3e}")
+            out[key.lower()] += grad_check(
+                key, kern, 1, fwd, partial(op.apply, adjoint=not adjoint),
+                x, g, partial(queued_ms, reps=50), label,
+                rel_err_vs_plain_autograd=f"{err:.3e}")
+    del Gb
+    return out
+
+
+def silent_case(path, N_op, x, b, lam):
+    """Phase 12b: autograd's gradient in x of L = ||(N + lam I) x - b||^2
+    against 2 (N + lam I) r, r = (N + lam I) x - b, from explicit applies
+    (N is Hermitian). The kernels' output is summed with lam x, which
+    carries the graph whatever N does: where the kernels cut the graph the
+    gradient comes back finite and wrong. Prints the reading and returns
+    (rel_err, the graded run's launches); holds it to no bar."""
+    import torch
+    from indigo_tpu_torch.utils import rel_err
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    reset_counts()
+    xg = x.clone().requires_grad_()
+    sq_norm(N_op * xg + lam * xg - b).backward()
+    torch.cuda.synchronize()
+    launches, plain = kernel_launches(), plain_calls_on_card()
+    with torch.no_grad():
+        r = N_op * x + lam * x - b
+        ref = 2 * (N_op * r + lam * r)
+    err = rel_err(xg.grad, ref)
+    log("grad_silent", t0, path=path, rel_err=f"{err:.3e}",
+        grad_finite=bool(torch.isfinite(xg.grad).all()),
+        **{f"{k}_launches": v for k, v in launches.items() if v},
+        plain_calls=plain, card=repr(card_line()))
+    return err, launches
+
+
+def radial_silent_case(ops):
+    """The silent case on the 2D radial lane: N = A.H * A at 256^2 / 8
+    coils (K3), b = A^H y of the noisy data, the recipe's lamda."""
+    import torch
+    A = ops[RADIAL_N]
+    x_true = torch.from_numpy(ops["x_true"][RADIAL_N])[:, None].to("cuda")
+    b = A.H * add_noise(A * x_true, SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x = torch.randn(b.shape, generator=gen, device="cuda",
+                    dtype=torch.complex64)
+    return silent_case(f"radial {RADIAL_N}^2", A.H * A, x, b, RADIAL_LAMDA)
+
+
+def tree_silent_case(st):
+    """The silent case on the 3D tree: N = sense_normal_toeplitz at 256^3 /
+    8 coils (K2), b its recipe's rhs, its lamda."""
+    import torch
+    b = st["rhs"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x = torch.randn(b.shape, generator=gen, device="cuda",
+                    dtype=torch.complex64)
+    return silent_case(f"tree {N}^3", st["N"], x, b, st["lamda"])
+
+
+def held_silent(reading, kernel, launches):
+    """Hold a silent-case reading: within SILENT_TOL, with ``launches`` of
+    ``kernel`` forward and backward together. Returns those launches."""
+    err, got = reading
+    if not err <= SILENT_TOL or got[kernel] != launches:
+        raise AssertionError(f"silent case: rel_err {err:.3e}, launches "
+                             f"{got}")
+    return launches
+
+
+def fd_scan(loss, y, grad, d):
+    """Re<grad, d> and the central difference's relative error against it
+    at each step of FD_STEPS."""
+    import torch
+    an = float((grad.conj() * d).real.double().sum())
+    with torch.no_grad():
+        fds = {eps: float(loss(y + eps * d) - loss(y - eps * d)) / (2 * eps)
+               for eps in FD_STEPS}
+    return an, {eps: abs(fd - an) / abs(an) for eps, fd in fds.items()}
+
+
+def grad_recon(serving):
+    """Phase 12c: the main path differentiated. L = ||x - x_true||^2 of
+    x = recon(y, output="device") at the serving lane's size, y a k-space
+    tensor that requires grad (phase 3's second noisy acquisition);
+    backward. Checks: the gradient is finite; K1 runs ITERS x chunks calls
+    forward and as many backward; no plain call. Then the gradient at the
+    noise-free y0 too, and at both a central difference along one seeded
+    direction d (the k-space of a smooth random image) at every step of
+    FD_STEPS against Re<grad, d>; the smallest error of each is held to
+    its FD_TOL.
+    Prints the warm forward s (no graph), the forward with its graph and
+    the backward, first and again warm, and the peak GB, then profiles one
+    forward with its graph and its backward. Returns the K1 launches of the
+    checked run."""
+    import torch
+    from indigo_tpu_torch.ops.dft_cuda import (
+        LAUNCHES_PER_CALL, sense_normal_cuda)
+
+    recon, x_true = serving["recon"], serving["x_true"]
+    t0 = time.time()
+    yt = torch.from_numpy(serving["y"]).to("cuda")
+    xt = torch.from_numpy(np.ascontiguousarray(x_true.ravel())).to("cuda")
+
+    def loss(yy):
+        return sq_norm(recon(yy, output="device").reshape(-1) - xt)
+
+    def clock(f):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = f()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    with torch.no_grad():
+        loss(yt)
+        _, warm_s = clock(lambda: loss(yt))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    yg = yt.clone().requires_grad_()
+    L, fwd_s = clock(lambda: loss(yg))
+    k_fwd = sense_normal_cuda.launches
+    _, bwd_s = clock(L.backward)
+    k_bwd = sense_normal_cuda.launches - k_fwd
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    calls = ITERS * (NC // COIL_CHUNK)
+    if (k_fwd, k_bwd) != (LAUNCHES_PER_CALL * calls,) * 2:
+        raise AssertionError(f"recon gradient: {k_fwd} forward and {k_bwd} "
+                             f"backward K1 launches, expected "
+                             f"{LAUNCHES_PER_CALL * calls} each")
+    if plain_calls_on_card() or not bool(torch.isfinite(yg.grad).all()):
+        raise AssertionError("recon gradient: a plain call ran on the card "
+                             "or the gradient is not finite")
+    log("grad_recon", t0, shape=f"{N}^3", nc=NC, iters=ITERS,
+        coil_chunk=COIL_CHUNK, k1_calls_fwd=k_fwd // LAUNCHES_PER_CALL,
+        k1_calls_bwd=k_bwd // LAUNCHES_PER_CALL, plain_calls=0,
+        grad_finite=True, loss=f"{L.item():.6e}",
+        warm_fwd_s=f"{warm_s:.4f}", first_fwd_with_graph_s=f"{fwd_s:.4f}",
+        first_bwd_s=f"{bwd_s:.4f}", peak_gb=f"{peak:.2f}",
+        card=repr(card_line()))
+    grad = yg.grad
+    del L, yg
+    # the direction: the k-space of a smooth random image (white k-space
+    # noise would move x mostly through CG's ill-conditioned, nonlinear
+    # part, where no step resolves the first-order term in f32)
+    d = torch.from_numpy(recon.simulate(coil_maps(N, 1, seed=SEED + 12)[0]))
+    d = d.to("cuda") * (torch.linalg.vector_norm(yt)
+                        / torch.linalg.vector_norm(d))
+    y0 = torch.from_numpy(serving["y0"]).to("cuda")
+    y0g = y0.clone().requires_grad_()
+    loss(y0g).backward()
+    for kind, y, g in (("noisy", yt, grad), ("noise_free", y0, y0g.grad)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"recon gradient at the {kind} y is not "
+                                 "finite")
+        an, errs = fd_scan(loss, y, g, d)
+        step = min(errs, key=errs.get)
+        log("grad_recon_fd", t0, y=kind, loss=f"{float(loss(y)):.6e}",
+            re_grad_dot_d=f"{an:.6e}", step_held=step,
+            rel_err_fd=f"{errs[step]:.3e}", fd_tol=FD_TOL[kind],
+            rel_err_fd_by_step=",".join(f"{e:g}:{v:.3e}"
+                                        for e, v in errs.items()),
+            card=repr(card_line()))
+        if not errs[step] <= FD_TOL[kind]:
+            raise AssertionError(f"recon gradient at the {kind} y vs central "
+                                 f"difference: rel {errs[step]:.3e} at the "
+                                 "best step")
+    del grad, y0g
+    yg = yt.clone().requires_grad_()
+    L, fwd_warm_s = clock(lambda: loss(yg))
+    _, bwd_warm_s = clock(L.backward)
+    log("grad_recon_warm", t0, fwd_with_graph_s=f"{fwd_warm_s:.4f}",
+        bwd_s=f"{bwd_warm_s:.4f}", card=repr(card_line()))
+    del L, yg
+    yg = yt.clone().requires_grad_()
+    profile_solve("serving_gradient", lambda: loss(yg).backward())
+    return {"k1": k_fwd + k_bwd}
+
+
+def function_cost(ops):
+    """Phase 12d: what launching K3 through _SpmmFn would cost the
+    host-bound radial solve (30 CG iterations, 62 K3 launches, no grad):
+    warm solves as shipped (the bare launch, as nothing requires grad) and
+    with every launch forced through the Function, FN_COST_PAIRS pairs in
+    alternating order. Prints the medians and their difference per solve
+    and per launch."""
+    import torch
+    from indigo_tpu_torch.ops import ell_spmm
+
+    t0 = time.time()
+    A = ops[RADIAL_N]
+    x_true = torch.from_numpy(ops["x_true"][RADIAL_N])[:, None].to("cuda")
+    b = A.H * add_noise(A * x_true, SEED + 1)
+    gates = {"direct": ell_spmm._carries_graph, "function": lambda x: True}
+    secs = {k: [] for k in gates}
+    for i in range(2 * FN_COST_PAIRS + 1):
+        order = ("function", "direct") if i % 2 else ("direct", "function")
+        for route in order:
+            ell_spmm._carries_graph = gates[route]
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                radial_solve(A, b)
+                torch.cuda.synchronize()
+                if i:  # the first round warms both routes
+                    secs[route].append(time.perf_counter() - t)
+            finally:
+                ell_spmm._carries_graph = gates["direct"]
+    med = {k: float(np.median(v)) for k, v in secs.items()}
+    launches = 2 + 2 * RADIAL_ITERS
+    diff = med["function"] - med["direct"]
+    log("grad_fn_cost", t0, path=f"radial {RADIAL_N}^2",
+        solves=len(secs["direct"]), k3_launches_per_solve=launches,
+        direct_median_s=f"{med['direct']:.5f}",
+        function_median_s=f"{med['function']:.5f}",
+        direct_range_s=f"{min(secs['direct']):.5f}-"
+        f"{max(secs['direct']):.5f}",
+        function_range_s=f"{min(secs['function']):.5f}-"
+        f"{max(secs['function']):.5f}",
+        diff_s=f"{diff:.6f}", diff_us_per_launch=f"{diff / launches * 1e6:.2f}",
+        card=repr(card_line()))
+
+
+def grad_radial(ops):
+    """Phase 12a (K3, K4), 12b and 12d on the radial lane. Returns the K3
+    and K4 launches."""
+    out = grad_spmm(ops)
+    out["k3"] += held_silent(radial_silent_case(ops), "k3", 4)
+    function_cost(ops)
+    return out
+
+
+def grad_tree(st):
+    """Phase 12b on the 3D tree. Returns the K2 launches."""
+    from indigo_tpu_torch.ops.dft_cuda import LAUNCHES_PER_CALL
+    return {"k2": held_silent(tree_silent_case(st), "k2",
+                              2 * LAUNCHES_PER_CALL)}
+
+
+# phase 12, lane by lane: each part runs on the objects of its lane's phase
+# (3, 5, 6b) and returns its launches by kernel; the kernels' part last
+GRAD_PARTS = {"serving": grad_recon, "radial": grad_radial,
+              "tree": grad_tree, "kernels": lambda _: grad_toeplitz_kernels()}
+
+
+def grad_part(lane, obj, grads):
+    """Run phase 12's part for ``lane`` on ``obj``; add its launches to
+    ``grads``."""
+    for k, v in GRAD_PARTS[lane](obj).items():
+        grads[k] += v
+
+
+def serving_lane():
+    recon = serving_recon(kooshball_traj(NSPOKES, NREAD, seed=SEED),
+                          coil_maps(N, NC, seed=SEED))
+    x_true = phantom(N)
+    y0, ys = serving_data(recon, x_true)
+    return dict(recon=recon, y0=y0, y=ys[1], x_true=x_true)
+
+
+def tree_lane():
+    return tree_recipe(kooshball_traj(NSPOKES, NREAD, seed=SEED),
+                       coil_maps(N, NC, seed=SEED), phantom(N), "cuda")
+
+
+def phase_gradients():
+    """Phase 12 alone: builds each lane with the builders of phases 3, 5
+    and 6b and runs its part, in main()'s order. Returns the launches by
+    kernel."""
+    import torch
+    grads = dict(k1=0, k2=0, k3=0, k4=0)
+    for lane, build in (("serving", serving_lane),
+                        ("radial", build_radial_ops), ("tree", tree_lane),
+                        ("kernels", lambda: None)):
+        obj = build()
+        grad_part(lane, obj, grads)
+        del obj
+        torch.cuda.empty_cache()
+    return grads
+
+
+def f9_reading():
+    """Phase 12b's two readings alone, held to no bar: on a tree whose
+    kernels cut the autograd graph they show the fault."""
+    import torch
+    ops = build_radial_ops()
+    radial_silent_case(ops)
+    del ops
+    torch.cuda.empty_cache()
+    tree_silent_case(tree_lane())
+
+
 def main():
     phase_device()
     phase_build()
+    import torch
     worst, timing = phase_kernels()
-    launches, serving_s_per_iter = phase_main_path()
+    launches, serving_s_per_iter, serving = phase_main_path()
+    # phase 12 runs on each lane's objects while they exist
+    grads = dict(k1=0, k2=0, k3=0, k4=0)
+    grad_part("serving", serving, grads)
+    del serving
+    torch.cuda.empty_cache()
     ops = build_radial_ops()
     spmm_rec = phase_spmm_kernels(ops)
     k3_launches = phase_radial(ops)
     k4_launches = phase_radial_bell(ops)
-    import torch
+    grad_part("radial", ops, grads)
     # the 256^2 radial operator waits on the host for phase 10 (d)
     radial = (ops[RADIAL_N].to("cpu"), ops["x_true"][RADIAL_N])
     del ops
@@ -2721,6 +3235,7 @@ def main():
     k2_worst, k2_timing = phase_toeplitz_kernels()
     tree, k2_launches = phase_tree_path()
     phase_tree_cross_checks(tree)
+    grad_part("tree", tree, grads)
     maps = tree["maps"]
     del tree
     torch.cuda.empty_cache()
@@ -2739,6 +3254,14 @@ def main():
     k2_launches += boundary["k2"]
     k3_launches += boundary["k3"]
     k4_launches += boundary["k4"]
+    grad_part("kernels", None, grads)
+    print("[grad_summary] " + " ".join(f"{k}_launches={v}"
+                                        for k, v in grads.items())
+          + f" card={card_line()!r}", flush=True)
+    launches += grads["k1"]
+    k2_launches += grads["k2"]
+    k3_launches += grads["k3"]
+    k4_launches += grads["k4"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def entry(name, source, replaces, launches, worst, t):

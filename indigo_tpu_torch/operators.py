@@ -233,7 +233,8 @@ class SpMatrix(Operator):
     """Sparse matrix leaf: block-sparse tiles for both directions.
 
     The scipy CSR is converted on the host once; A^H is tiled separately,
-    so both directions are gathers (``ops.spmm``: kernel K3 or K4 on CUDA).
+    so both directions are gathers (``ops.spmm``: kernel K3 or K4 on CUDA),
+    and each is the other's gradient in x.
     ``format``: 'jag' (ragged blocked-CSR), 'bell' (blocked-ELL),
     'element' (exactly-nnz storage, plain gather/scatter applies), or
     'auto' — 'jag' unless both jag tilings together would exceed
@@ -286,7 +287,9 @@ class SpMatrix(Operator):
 
         if isinstance(self._ell, ElementELL):
             return element_spmm(self._ell, x, adjoint=adjoint)
-        return spmm(self._ellH if adjoint else self._ell, x)
+        A, AH = ((self._ellH, self._ell) if adjoint
+                 else (self._ell, self._ellH))
+        return spmm(A, x, AH=AH)
 
     def cost(self, ncols=1):
         ell, K = self._ell, ncols

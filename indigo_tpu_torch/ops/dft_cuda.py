@@ -18,6 +18,12 @@ On CPU tensors they run ``sense_normal_reference`` and
 the kernels are compared with on the card. The kernels are built on first
 use (``ops/_build.py``), never at import.
 
+Both operators are Hermitian (a real spectrum; the coil sum is
+sum_c conj(m_c) T(m_c .)), so the gradient in the operand is one more
+launch of the same kernel on the cotangent (:class:`_SenseNormalFn`). On
+the card the wrappers always launch through it; a spectrum or maps that
+require grad raise there (not ported, as in the reference's kernels).
+
 The reference's sigma-basis helpers (``uses_sigma_basis``,
 ``solver_sigma_axes``, ``to_sigma_basis``, ``from_sigma_basis``) are here
 with its semantics, as index permutations of tensors: its kernels work in
@@ -33,7 +39,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from . import _refuse_operator_grad
 from .dft_fft import block_spectrum, toeplitz_apply_block
 
 __all__ = ["kernel_spectrum", "supported", "sense_normal_reference",
@@ -283,20 +291,45 @@ def _run(Tf, v, maps, events):
     return out
 
 
+class _SenseNormalFn(torch.autograd.Function):
+    """out = N v, differentiable in v, for the Hermitian N of K1 (``maps``
+    given) or K2 (``maps`` None). ``launch(Tf, v, maps, events)`` computes
+    N v: :func:`_run` on the card, a plain version in the CPU tests. The
+    backward is N^H g = N g, one more launch on the cotangent; ``events``
+    time the forward only."""
+
+    @staticmethod
+    def forward(ctx, launch, Tf, maps, v, events=None):
+        ctx.launch = launch
+        ctx.save_for_backward(Tf, maps)
+        return launch(Tf, v, maps, events)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        Tf, maps = ctx.saved_tensors
+        return None, None, None, ctx.launch(Tf, g.contiguous(), maps,
+                                            None), None
+
+
 def sense_normal_cuda(Tf, maps, v, events=None):
     """Launch the CUDA Toeplitz SENSE normal op K1 (five kernels).
 
     Tf: (2n1, 2n2, 2n3) float32 (:func:`kernel_spectrum` layout); maps
     (nc, n1, n2, n3) and v (S, n1, n2, n3) complex64, contiguous, on one
     CUDA device. Returns (S, n1, n2, n3) complex64. CPU tensors run the
-    plain version; anything else the kernels do not take raises.
+    plain version; anything else the kernels do not take raises. With grad
+    mode on and ``v.requires_grad`` the result carries the graph, and its
+    backward launches K1 on the cotangent; ``Tf`` or ``maps`` that require
+    grad raise.
     ``events``: optional ``LAUNCHES_PER_CALL + 1`` ``torch.cuda.Event``s
     recorded before the first kernel and after each, for per-kernel timing.
     """
     if v.device.type == "cpu":
         return sense_normal_reference(Tf, maps, v)
     _validate("sense_normal_cuda", Tf, v, maps)
-    return _run(Tf, v, maps, events)
+    _refuse_operator_grad("sense_normal_cuda", Tf=Tf, maps=maps)
+    return _SenseNormalFn.apply(_run, Tf, maps, v, events)
 
 
 sense_normal_cuda.launches = 0
@@ -310,12 +343,14 @@ def toeplitz_apply_cuda(Tf, u, events=None):
     (B, n1, n2, n3) complex64, contiguous, on Tf's CUDA device. Returns
     (B, n1, n2, n3) complex64. CPU tensors run the plain version; anything
     else the kernels do not take raises (a non-contiguous u is never copied
-    here). ``events``: as for :func:`sense_normal_cuda`.
+    here). Gradients in u: as for :func:`sense_normal_cuda`, with K2.
+    ``events``: as for :func:`sense_normal_cuda`.
     """
     if u.device.type == "cpu":
         return toeplitz_apply_reference(Tf, u)
     _validate("toeplitz_apply_cuda", Tf, u)
-    return _run(Tf, u, None, events)
+    _refuse_operator_grad("toeplitz_apply_cuda", Tf=Tf)
+    return _SenseNormalFn.apply(_run, Tf, None, u, events)
 
 
 toeplitz_apply_cuda.launches = 0

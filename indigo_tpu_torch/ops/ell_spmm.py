@@ -10,14 +10,26 @@ tensors the wrappers run the plain torch versions ``sparse.jag_spmm`` /
 ``sparse.bell_spmm``, which are also what the kernels are compared with on
 the card. The kernels are built on first use (``ops/_build.py``), never at
 import. Each wrapper counts its launches in ``.launches``.
+
+A bare wrapper call knows no adjoint, so on the card it raises when x or
+the matrix values require grad; :func:`kernel_spmm`, the card's route of
+``ops.spmm(A, x, AH=...)`` and so of ``SpMatrix``, differentiates in x
+through :class:`_SpmmFn`, and only where the product must carry the graph
+(:func:`_carries_graph`): on the H100 a launch through the Function costs
+34-116 us more host time, 2.1-7.2 ms on a 44-85 ms radial CG solve, which
+waits on the host (``chip_smoke.py``, phase 12d).
 """
 from __future__ import annotations
 
-import torch
+from functools import partial
 
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import _refuse_operator_grad
 from ..sparse import BlockedELL, BlockedJag, bell_spmm, jag_spmm
 
-__all__ = ["jag_spmm_cuda", "ell_spmm_cuda"]
+__all__ = ["jag_spmm_cuda", "ell_spmm_cuda", "kernel_spmm"]
 
 
 def _check_inputs(name, A, x):
@@ -48,8 +60,21 @@ def _check_inputs(name, A, x):
     return M, int(x.shape[1])
 
 
+def _carries_graph(x):
+    """True when a product of x must carry autograd's graph."""
+    return x.requires_grad and torch.is_grad_enabled()
+
+
 def _launch(name, entry, A, x):
-    """Check, allocate y, launch ``entry`` on the current stream."""
+    """Check, allocate y, launch ``entry`` on the current stream. Inside
+    :class:`_SpmmFn` grad mode is off, so only a bare call refuses (the
+    test is spelled out: phase 12d forces :func:`_carries_graph`)."""
+    _refuse_operator_grad(name, data=A.data, nz_val=A.nz_val)
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name}: x requires grad, and a bare call has no adjoint "
+            "matrix to launch for it; apply an SpMatrix, or call "
+            "ops.spmm(A, x, AH=...)")
     M, K = _check_inputs(name, A, x)
     from ._build import load_library
     lib = load_library()
@@ -98,3 +123,46 @@ def ell_spmm_cuda(ell: BlockedELL, x):
 
 
 ell_spmm_cuda.launches = 0
+
+
+class _SpmmFn(torch.autograd.Function):
+    """y = A x, differentiable in x: forward ``kernel(A, x)``, backward
+    ``kernel(AH, g)`` with AH = A^H stored beside A (for the real f32
+    matrices the kernels take, A^T). ``kernel`` is ``jag_spmm_cuda`` or
+    ``ell_spmm_cuda``, which take the plain version on CPU tensors, so the
+    CPU tests run this wiring too."""
+
+    @staticmethod
+    def forward(ctx, kernel, A, AH, x):
+        ctx.kernel, ctx.AH = kernel, AH
+        return kernel(A, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return None, None, None, ctx.kernel(ctx.AH, g.contiguous())
+
+
+def kernel_spmm(kernel, A, x, AH=None):
+    """y = A x through ``kernel`` (:func:`jag_spmm_cuda` or
+    :func:`ell_spmm_cuda`) for a real A: ``ops.spmm``'s route on the card.
+
+    A complex x goes to the kernel as the (N, 2K) float32 view of its real
+    and imaginary parts and comes back complex. Given ``AH`` = A^H and an
+    x whose product carries the graph, it runs through :class:`_SpmmFn`,
+    whose backward launches ``kernel`` on ``AH``; matrix values that
+    require grad raise. Otherwise it is a bare kernel call, which on the
+    card raises for an x that requires grad. On CPU tensors the wrappers
+    take their plain versions, so the tests run this route there.
+    """
+    if AH is not None and _carries_graph(x):
+        _refuse_operator_grad("spmm", data=A.data, nz_val=A.nz_val)
+        run = partial(_SpmmFn.apply, kernel, A, AH)
+    else:
+        run = partial(kernel, A)  # refuses what it cannot differentiate
+    if x.is_complex():
+        x = x.to(torch.complex64).contiguous()
+        N, K = x.shape
+        y = run(torch.view_as_real(x).reshape(N, 2 * K))
+        return torch.view_as_complex(y.reshape(-1, K, 2))
+    return run(x.to(torch.float32).contiguous())

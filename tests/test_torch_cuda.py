@@ -681,3 +681,159 @@ def test_checkpoint_of_a_cuda_tensor_comes_back_on_cuda(cuda, tmp_path):
     out = load_state(p, like={"x": x, "k": 0})
     assert out["x"].is_cuda and torch.equal(out["x"], x) and out["k"] == 3
     assert not load_state(p)["x"].is_cuda
+
+
+# ---- gradients: each kernel's backward launches its adjoint kernel -------
+
+def _k1_k2_cases(cuda):
+    """(wrapper, operator tensors, plain version) of K1 and K2 at 16^3."""
+    from indigo_tpu_torch.ops.dft_cuda import (
+        sense_normal_reference, toeplitz_apply_cuda, toeplitz_apply_reference)
+
+    T, m, x = _inputs(np.random.default_rng(15), (16, 16, 16), 2, 3, cuda)
+    return x, [("K1", sense_normal_cuda, (T, m), sense_normal_reference),
+               ("K2", toeplitz_apply_cuda, (T,), toeplitz_apply_reference)]
+
+
+def test_k1_k2_gradient_is_one_more_launch_on_the_cotangent(cuda):
+    """The gradient in the operand is bitwise the kernel on the cotangent
+    (both are Hermitian), one call (5 launches) per backward, no plain
+    call, and within 1e-4 of autograd through the plain version."""
+    x, cases = _k1_k2_cases(cuda)
+    g = torch.randn_like(x)
+    for name, fn, ops, plain in cases:
+        v = x.clone().requires_grad_()
+        out = fn(*ops, v)
+        assert out.grad_fn is not None, name
+        k0, p0 = fn.launches, plain.cuda_calls
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert (fn.launches - k0, plain.cuda_calls - p0) == \
+            (LAUNCHES_PER_CALL, 0), name
+        assert torch.equal(v.grad, fn(*ops, g)), name
+        vp = x.clone().requires_grad_()
+        plain(*ops, vp).backward(g)
+        assert rel_err(v.grad, vp.grad) < 1e-4, name
+
+
+def test_k1_k2_without_grad_launch_directly(cuda):
+    """No grad mode or no operand that requires grad: the launch through
+    the Function carries no graph and equals the grad path's forward."""
+    x, cases = _k1_k2_cases(cuda)
+    for name, fn, ops, _ in cases:
+        direct = fn(*ops, x)
+        assert direct.grad_fn is None and not direct.requires_grad, name
+        v = x.clone().requires_grad_()
+        with torch.no_grad():
+            assert fn(*ops, v).grad_fn is None, name
+        assert torch.equal(fn(*ops, v).detach(), direct), name
+
+
+def test_k1_k2_operator_gradients_raise_on_the_card(cuda):
+    x, cases = _k1_k2_cases(cuda)
+    for name, fn, ops, _ in cases:
+        for i in range(len(ops)):
+            grad_ops = list(ops)
+            grad_ops[i] = ops[i].clone().requires_grad_()
+            k0 = fn.launches
+            with pytest.raises(NotImplementedError, match="not ported"):
+                fn(*grad_ops, x)
+            assert fn.launches == k0, name
+
+
+@pytest.mark.parametrize("fmt", ["jag", "bell"])
+def test_spmatrix_gradient_is_the_adjoint_kernel(cuda, fmt):
+    """SpMatrix in both directions: the gradient is bitwise the other
+    direction's product, one K3/K4 launch per backward, no plain call;
+    a complex operand's gradient comes back complex."""
+    import indigo_tpu_torch as tit
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import bell_spmm, jag_spmm
+
+    kern = jag_spmm_cuda if fmt == "jag" else ell_spmm_cuda
+    rng = np.random.default_rng(16)
+    A = _sparse(rng, 257, 640, 0.01)
+    op = tit.SpMatrix(A, format=fmt, device=cuda)
+    for adjoint in (False, True):
+        M, N = op.shape[::-1] if adjoint else op.shape
+        for x in (torch.from_numpy(rand64c(N, 3, rng=rng)),
+                  torch.randn(N, 4)):
+            x = x.to(cuda).requires_grad_()
+            g = torch.randn((M,) + tuple(x.shape[1:]), dtype=x.dtype,
+                            device=cuda)
+            y = op.apply(x, adjoint=adjoint)
+            k0, p0 = kern.launches, spmm.plain_cuda_calls
+            y.backward(g)
+            torch.cuda.synchronize()
+            assert (kern.launches - k0, spmm.plain_cuda_calls - p0) == (1, 0)
+            assert x.grad.dtype == x.dtype
+            assert torch.equal(x.grad, op.apply(g, adjoint=not adjoint))
+            xp = x.detach().clone().requires_grad_()
+            E = op.ellH if adjoint else op.ell
+            plain = jag_spmm if fmt == "jag" else bell_spmm
+            plain(E, xp).backward(g)
+            assert rel_err(x.grad, xp.grad) < 1e-5
+
+
+def test_spmm_gradients_not_ported_raise_on_the_card(cuda):
+    """A bare spmm or kernel call with x requiring grad has no adjoint to
+    launch, and matrix values that require grad are not ported: both
+    raise, before any launch; without grad the bare call still runs."""
+    from indigo_tpu_torch.ops import spmm
+    from indigo_tpu_torch.ops.ell_spmm import ell_spmm_cuda, jag_spmm_cuda
+    from indigo_tpu_torch.sparse import csr_to_bell, csr_to_jag
+
+    rng = np.random.default_rng(17)
+    A = _sparse(rng, 64, 256, 0.05)
+    x = torch.randn(256, 2, device=cuda)
+    xg = x.clone().requires_grad_()
+    for conv, kern in ((csr_to_jag, jag_spmm_cuda),
+                       (csr_to_bell, ell_spmm_cuda)):
+        mat, matH = conv(A).to(cuda), conv(A.T.tocsr()).to(cuda)
+        k0 = kern.launches
+        for call in (lambda: spmm(mat, xg), lambda: kern(mat, xg)):
+            with pytest.raises(NotImplementedError, match="no adjoint"):
+                call()
+        mat.nz_val.requires_grad_()
+        with pytest.raises(NotImplementedError, match="nz_val"):
+            spmm(mat, x, AH=matH)
+        assert kern.launches == k0
+        mat.nz_val.requires_grad_(False)
+        assert kern(mat, x).grad_fn is None
+        assert spmm(mat, xg, AH=matH).grad_fn is not None
+
+
+def test_recon_gradient_on_the_card_matches_cpu(cuda):
+    """SenseRecon's rhs -> solve differentiates through K1 on the card:
+    with coil_chunk 2 of 4 coils, 2 K1 calls per CG iteration forward and
+    2 backward, no plain call, and the card's gradient within 1e-4 of the
+    CPU's plain one."""
+    from indigo_tpu_torch.models import SenseRecon
+    from indigo_tpu_torch.ops.dft_cuda import sense_normal_reference
+
+    rng = np.random.default_rng(18)
+    n, nc, iters = 32, 4, 5
+    dirs = rng.standard_normal((256, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    r = (np.arange(32) - 16) / 32
+    traj = (dirs[:, None, :] * r[None, :, None]).reshape(-1, 3)
+    maps = (0.5 + rand64c(nc, n, n, n, rng=rng) * 0.1).astype(np.complex64)
+    kw = dict(oversamp=1.25, width=4, iters=iters, coil_chunk=2)
+    y = rand64c(nc * len(traj), rng=rng)
+    c = rand64c(n ** 3, rng=rng)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        rec = SenseRecon(traj, maps, device=dev, **kw)
+        yt = torch.from_numpy(y).to(dev).requires_grad_()
+        x = rec.solve(rec.rhs(yt))[0]
+        k0, p0 = sense_normal_cuda.launches, sense_normal_reference.cuda_calls
+        (torch.from_numpy(c).to(dev).conj() * x).real.sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sense_normal_cuda.launches - k0 == \
+                LAUNCHES_PER_CALL * 2 * iters
+            assert sense_normal_reference.cuda_calls == p0
+        grads.append(yt.grad.cpu())
+    assert torch.isfinite(grads[0]).all()
+    assert rel_err(grads[0], grads[1]) < 1e-4

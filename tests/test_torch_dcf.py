@@ -6,6 +6,8 @@ accumulation): held to 1e-5. The device fixed point (KB gather and
 host one at 1e-4, the reference's own bar between its two paths
 (tests/test_aux.py). ``SenseRecon(dcf="pipe_menon")`` is held to the
 reference pipeline's image at 1e-4, like the other SenseRecon checks.
+The comparisons with the reference run on each gridding builder in both
+packages (tests/test_torch_native.py).
 """
 import numpy as np
 import pytest
@@ -15,6 +17,8 @@ from indigo_tpu.models import SenseRecon as JRecon
 from indigo_tpu_torch import noncart
 from indigo_tpu_torch.models import SenseRecon
 from indigo_tpu_torch.utils import rand64c, rel_err
+
+from test_torch_native import BUILDERS, builder  # noqa: F401
 
 
 def _radial_2d():
@@ -29,8 +33,9 @@ def _cases(rng):
             "random3d": (rng.random((250, 3)) - 0.5, (16, 16, 20), 12)}
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 @pytest.mark.parametrize("case", ["radial2d", "random3d"])
-def test_host_matches_reference(rng, case):
+def test_host_matches_reference(rng, case, builder):
     traj, grid, iters = _cases(rng)[case]
     ref = j_noncart.pipe_menon_dcf(traj, grid, width=4, iters=iters,
                                    impl="host")
@@ -73,8 +78,9 @@ def _kooshball(nspokes, nread, seed=0):
     return (dirs[:, None, :] * r[None, :, None]).reshape(-1, 3)
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 @pytest.mark.parametrize("dim", [2, 3])
-def test_sense_recon_pipe_menon_matches_reference(rng, dim):
+def test_sense_recon_pipe_menon_matches_reference(rng, dim, builder):
     if dim == 2:
         traj, img = _radial_2d() * 0.9, (16, 16)
     else:

@@ -8,8 +8,12 @@ launch per group of assertions, rank 0's numpy results compared here.
 Tolerances are those of tests/test_e2e_sharded.py: 1e-4 for a CG solve
 against another pipeline, 1e-6 for the same pipeline called two ways. The
 trajectories are a kooshball and 2D radial spokes, and the maps smooth, so
-that the solves are well conditioned.
+that the solves are well conditioned. Both packages grid on the builder the
+test pins (tests/test_torch_native.py), the ranks too: the solves on each of
+the two, the rest on the native one.
 """
+from functools import cache
+
 import numpy as np
 import pytest
 import torch
@@ -24,10 +28,31 @@ from indigo_tpu_torch.parallel.launch import launch
 from indigo_tpu_torch.utils import rand64c, rel_err
 
 NRANKS = 8
+BUILDERS = ["native", "numpy"]     # as tests/test_torch_native.py's
 
 
 def run(fn, *args):
     return launch(fn, NRANKS, args=args, device="cpu", timeout=480.0)
+
+
+@pytest.fixture
+def builder(request, monkeypatch):
+    """tests/test_torch_native.py's ``builder``, imported when a test runs:
+    the ranks import this module, whose top level imports no jax."""
+    from test_torch_native import pin_builder
+
+    return pin_builder(monkeypatch, getattr(request, "param", "native"))
+
+
+def pin_rank(builder):
+    """In a rank, the port's gridding builder of the parent's pin, which
+    does not reach another process."""
+    from indigo_tpu_torch import native
+
+    if builder == "numpy":
+        native.available = lambda: False
+    elif not native.available():
+        raise RuntimeError(f"no native gridding in the rank: {native._error}")
 
 
 def raises(exc, match, fn, *args, **kw):
@@ -94,7 +119,8 @@ def _state(rec):
 
 # ---- 3D ------------------------------------------------------------------------
 
-def ranks_3d(traj, maps, y, traj_small, y_small):
+def ranks_3d(builder, traj, maps, y, traj_small, y_small):
+    pin_rank(builder)
     mesh = make_mesh(device="cpu", vol=8)
     out = {}
     kw = dict(oversamp=2.0, width=4, iters=8)
@@ -129,8 +155,13 @@ def ranks_3d(traj, maps, y, traj_small, y_small):
     return out
 
 
-@pytest.fixture(scope="module")
-def run_3d():
+@pytest.fixture
+def run_3d(builder):
+    return _run_3d(builder)
+
+
+@cache
+def _run_3d(builder):
     rng = np.random.default_rng(1234)
     n, nc = 32, 3
     shape = (n, n, n)
@@ -143,11 +174,12 @@ def run_3d():
     one = SenseRecon(traj_small, maps[:2], dcf="radial", device="cpu",
                      oversamp=1.25, width=4, iters=6)
     y_small = one.simulate(phantom(shape))
-    out = run(ranks_3d, traj, maps, y, traj_small, y_small)
+    out = run(ranks_3d, builder, traj, maps, y, traj_small, y_small)
     return dict(traj=traj, maps=maps, y=y, rec1=rec1, traj_small=traj_small,
                 y_small=y_small, one=one, shape=shape, out=out)
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_sharded_e2e_matches_reference_and_single_device(run_3d):
     from indigo_tpu.parallel import make_mesh as j_make_mesh
     from indigo_tpu.parallel.e2e import SenseReconSharded as JSharded
@@ -196,6 +228,7 @@ def test_sharded_e2e_oneshot_and_validation(run_3d):
     assert rel_err(out["x_tensor"], out["x_cls"]) < 1e-6
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_sharded_e2e_autopad_grid_same_geometry(run_3d):
     """The auto-padded grid (oversamp 1.25 at n=32: nominal grid 40, z
     padded to a tile*mesh multiple) against the reference on the same mesh
@@ -224,7 +257,8 @@ def test_sharded_e2e_autopad_grid_same_geometry(run_3d):
 
 # ---- 2D batches ------------------------------------------------------------------
 
-def ranks_2d(traj, maps, y, w, y_pm):
+def ranks_2d(builder, traj, maps, y, w, y_pm):
+    pin_rank(builder)
     mesh = make_mesh(device="cpu", vol=8)
     kw = dict(oversamp=2.0, width=4)
     rec = SenseReconSharded(traj, maps, mesh, dcf="radial", iters=6, **kw)
@@ -239,8 +273,13 @@ def ranks_2d(traj, maps, y, w, y_pm):
     }
 
 
-@pytest.fixture(scope="module")
-def run_2d():
+@pytest.fixture
+def run_2d(builder):
+    return _run_2d(builder)
+
+
+@cache
+def _run_2d(builder):
     from indigo_tpu_torch.noncart import pipe_menon_dcf
 
     rng = np.random.default_rng(1234)
@@ -255,10 +294,11 @@ def run_2d():
                   for s in range(S)])                       # (S, nc, M)
     w = pipe_menon_dcf(traj, (64, 64), width=4, device="cpu")
     y_pm = rand64c(1, nc, len(traj), rng=rng)
-    out = run(ranks_2d, traj, maps, y, w, y_pm)
+    out = run(ranks_2d, builder, traj, maps, y, w, y_pm)
     return dict(traj=traj, maps=maps, y=y, rec1=rec1, out=out, y_pm=y_pm, n=n)
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_sharded_e2e_2d_batch_matches_reference_and_single_device(run_2d):
     """S = 3 acquisitions padded to the 8 ranks, each slice solved on its
     own rank."""

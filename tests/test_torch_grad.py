@@ -52,6 +52,7 @@ from indigo_tpu_torch.sparse import (
 from indigo_tpu_torch.toeplitz import ToeplitzNormal, sense_normal_toeplitz
 from indigo_tpu_torch.utils import rand64c, rel_err
 
+from test_torch_native import BUILDERS, builder  # noqa: F401
 from test_torch_operators import KINDS, _leaf
 
 OP_TOL = 1e-5
@@ -252,10 +253,12 @@ def test_sense_batch_recon_gradient_matches_reference(rng):
     assert rel_err(g, g_ref) < SOLVE_TOL
 
 
-def test_sense_recon_gradient_matches_reference(rng):
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
+def test_sense_recon_gradient_matches_reference(rng, builder):
     """SenseRecon at 16^3: k-space (user order) -> rhs -> solve, against
     the reference's own rhs and CG bodies (its cjit boundary is host
-    numpy, so the same jnp functions are composed here)."""
+    numpy, so the same jnp functions are composed here), with both
+    packages gridding on each builder (tests/test_torch_native.py)."""
     from test_torch_recon import CONFIGS, smooth_maps
 
     cfg = CONFIGS["3d"]

@@ -5,9 +5,11 @@
 
 Tolerances: 1e-5 for operators (f32, sums in another order than the
 reference's tile gathers), 1e-4 for the reconstructed image and the CG
-residuals, as tests/test_torch_recon.py.
+residuals, as tests/test_torch_recon.py; the image's bar is twice the
+reference's own distance between its two gridding builds where that is
+larger (``test_sense_recon_at_default_oversampling``).
 """
-from functools import partial
+from functools import cache, partial
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from indigo_tpu_torch.noncart import interp_mat
 from indigo_tpu_torch.ops import tile_interp as tti
 from indigo_tpu_torch.utils import rand64c, rel_err
 
+from test_torch_native import BUILDERS, builder, pin_reference  # noqa: F401
 from test_torch_recon import kooshball_traj, phantom, radial_traj, smooth_maps
 
 # the model functions default to the card; these comparisons run on the host
@@ -91,7 +94,7 @@ def test_nufft_op_halo_branch(rng, img, oversamp):
 @pytest.mark.parametrize("img,oversamp,interp", [
     ((24, 24), 1.25, "tile"), ((32, 32), 1.5, "tile"),
     ((16, 16, 16), 1.5, "tile"), ((24, 24), 1.5, "sparse"), ((48,), 1.5, "auto")])
-def test_nufft_op_xla_fft_chain(rng, img, oversamp, interp):
+def test_nufft_op_xla_fft_chain(rng, img, oversamp, interp, builder):
     """fft="xla": G [. P] . (D_out F D_in) . Z . Da with the library FFT,
     against the reference's chain and the port's own fft="mm" form."""
     traj = rng.uniform(-0.5, 0.5, size=(200, len(img)))
@@ -145,16 +148,36 @@ RECON = {
                  kw=dict(iters=10)),
 }
 
+@cache
+def _reference_recon(case, name):
+    """The reference's SenseRecon of ``case`` on gridding build ``name``,
+    whatever the test pinned."""
+    cfg = RECON[case]
+    with pytest.MonkeyPatch.context() as mp:
+        pin_reference(mp, name)
+        return JRecon(cfg["traj"](), smooth_maps(cfg["img"], cfg["centers"]),
+                      **cfg["kw"])
 
+
+@pytest.mark.parametrize("builder", BUILDERS + ["mixed"], indirect=True)
 @pytest.mark.parametrize("case", sorted(RECON))
-def test_sense_recon_at_default_oversampling(case):
+def test_sense_recon_at_default_oversampling(case, builder):
     """SenseRecon at oversamp 1.25 on grids 20^3 and 50^2, which the
-    periodic tiling does not cover: image and residuals <= 1e-4, rhs and
-    simulate <= 1e-5."""
+    periodic tiling does not cover: residuals <= 1e-4, rhs and simulate
+    <= 1e-5, on each gridding builder and on the reference's numpy with the
+    port's native ("mixed").
+
+    The bar of the image, and of the one the port solves from the
+    reference's arrays, is max(1e-4, 2 d_ref), d_ref being the distance
+    between the reference's own images on its two builders on the same
+    data: at the 10th CG step of the 40^2 case one ulp in 14 % of the
+    gridding weights moves the reference's image by 9.5e-5 against
+    itself."""
     cfg = RECON[case]
     traj = cfg["traj"]()
     maps = smooth_maps(cfg["img"], cfg["centers"])
-    j = JRecon(traj, maps, **cfg["kw"])
+    ref_build = "native" if builder == "native" else "numpy"
+    j = _reference_recon(case, ref_build)
     p = SenseRecon(traj, maps, device="cpu", **cfg["kw"])
     assert any(isinstance(m, tit.KBInterp) for m in p.A.modules())
     assert abs(p.lamda - j.lamda) <= 1e-5 * j.lamda
@@ -165,8 +188,14 @@ def test_sense_recon_at_default_oversampling(case):
     rr, ri = j._rhs_fn(j._A_d, j._wd, ys)
     assert rel_err(p.rhs(y), np.asarray(rr) + 1j * np.asarray(ri)) < TOL
     xp, rp = p(y, return_resids=True)
-    xj, rj = j(y, return_resids=True)
-    assert rel_err(xp, np.asarray(xj)) < 1e-4
+    out = {b: _reference_recon(case, b)(y, return_resids=True)
+           for b in BUILDERS}
+    xj, rj = out[ref_build]
+    d_ref = rel_err(np.asarray(out["native"][0]),
+                    np.asarray(out["numpy"][0]))
+    err, bar = rel_err(xp, np.asarray(xj)), max(1e-4, 2 * d_ref)
+    assert err < bar, f"image rel_err {err} over max(1e-4, 2 d_ref), " \
+        f"d_ref {d_ref}"
     assert rel_err(rp, np.asarray(rj).ravel()) < 1e-4
     # the pipeline rebuilt from the reference's arrays takes the halo plan
     gplan = j.A.left.child.left.plan     # KronI(KBInterp . CenteredDFT)
@@ -182,4 +211,6 @@ def test_sense_recon_at_default_oversampling(case):
         nt=gplan.nt, pad_lo=gplan.pad_lo, width=gplan.width,
         lamda=j.lamda, iters=j.iters)
     q = SenseRecon.from_arrays(state, device="cpu")
-    assert rel_err(q(y), np.asarray(xj)) < 1e-4
+    err = rel_err(q(y), np.asarray(xj))
+    assert err < bar, f"from_arrays image rel_err {err} over " \
+        f"max(1e-4, 2 d_ref), d_ref {d_ref}"

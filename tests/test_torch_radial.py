@@ -5,6 +5,8 @@
 adjoint and sample permutation at 1e-5, with and without the Morton column
 re-tiling (``col_tiling``); then ``cg`` on A^H A against
 ``indigo_tpu.solvers.cg`` at 1e-4 (the bar of tests/test_torch_cg.py).
+Both packages grid on the builder the test pins (tests/test_torch_native.py):
+the solves on each of the two, the operators on the native one.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from indigo_tpu_torch.models.sense import nufft_op, sense_nufft_op
 from indigo_tpu_torch.operators import Perm, SpMatrix
 from indigo_tpu_torch.sparse import BlockedJag
 from indigo_tpu_torch.utils import rand64c, rel_err
+
+from test_torch_native import BUILDERS, builder  # noqa: F401
 
 
 def radial_traj(nspokes, nread):
@@ -52,7 +56,7 @@ def _leaves(A, cls):
 
 @pytest.mark.parametrize("n", [32, 48])
 @pytest.mark.parametrize("col_tiling", [None, True, False])
-def test_sparse_sense_op_matches_reference(n, col_tiling):
+def test_sparse_sense_op_matches_reference(n, col_tiling, builder):
     rng, Aj, pj, At, pt = _problem(n, col_tiling=col_tiling)
     np.testing.assert_array_equal(pt.perm, pj.perm)
     np.testing.assert_allclose(pt.traj, pj.traj)
@@ -68,7 +72,7 @@ def test_sparse_sense_op_matches_reference(n, col_tiling):
     assert rel_err(At.H * torch.from_numpy(y), np.asarray(Aj.H * y)) < 1e-5
 
 
-def test_col_tiling_permutation_matches_reference():
+def test_col_tiling_permutation_matches_reference(builder):
     """The GridTiling leaf and the tiled CSR columns: same permutation, same
     block layout, and KB weights equal to f32 rounding (the reference's
     interp_mat may come from its native C++ gridding code, which rounds in
@@ -117,8 +121,9 @@ def _lamda(At, n, rng):
     return 0.3 * lmax
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 @pytest.mark.parametrize("n", [32, 48])
-def test_cg_history_matches_reference(n):
+def test_cg_history_matches_reference(n, builder):
     rng, Aj, _, At, _ = _problem(n)
     b = _rhs(Aj, n, rng)
     lam = _lamda(At, n, rng)
@@ -132,8 +137,9 @@ def test_cg_history_matches_reference(n):
     assert it["resids"].shape == (10,)
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 @pytest.mark.parametrize("history", [False, True])
-def test_cg_tol_freeze_matches_reference(history):
+def test_cg_tol_freeze_matches_reference(history, builder):
     """tol > 0: the solve freezes where the reference's loop stops; x,
     iters and the final residual agree."""
     rng, Aj, _, At, _ = _problem(32)
@@ -165,7 +171,7 @@ def test_cg_takes_a_callable_and_numpy(rng):
 
 
 @pytest.mark.parametrize("n,oversamp", [(64, 1.5), (100, 2.0)])
-def test_1d_nufft_op_matches_reference(n, oversamp, rng):
+def test_1d_nufft_op_matches_reference(n, oversamp, rng, builder):
     """1D: interp 'auto' resolves to the sparse leaf, as in the
     reference (Morton tiling of 128 grid nodes when the grid divides)."""
     traj = rng.random((300, 1)) - 0.5

@@ -4,8 +4,12 @@ Tolerances: rhs and simulate 1e-5 (operator level, f32); the image and the
 CG residuals 1e-4 (rounding differences grow through the iterations). The
 2D case is the tests/test_serving.py geometry at 30 CG steps: it reaches
 ~1e-6 relative residual there, and further steps sit on the f32 floor, where
-the two frameworks' rounding drives the residuals apart.
+the two frameworks' rounding drives the residuals apart. Both packages grid
+on the builder the test pins (tests/test_torch_native.py): the solves on
+each of the two, the operator-level checks on the native one.
 """
+from functools import cache
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +19,8 @@ from indigo_tpu.toeplitz import toeplitz_kernel as j_toeplitz_kernel
 from indigo_tpu_torch.convert import state_from_reference_arrays
 from indigo_tpu_torch.models import SenseRecon
 from indigo_tpu_torch.utils import rand64c, rel_err
+
+from test_torch_native import BUILDERS, builder  # noqa: F401
 
 
 def kooshball_traj(nspokes, nread, seed=0):
@@ -60,14 +66,21 @@ CONFIGS = {
 }
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def pair(request):
-    cfg = CONFIGS[request.param]
+@cache
+def _pair(config, builder):
+    cfg = CONFIGS[config]
     traj = cfg["traj"]()
     maps = smooth_maps(cfg["img"], cfg["centers"])
     j = JRecon(traj, maps, **cfg["kw"])
     p = SenseRecon(traj, maps, device="cpu", **cfg["kw"])
     return j, p, traj, maps, cfg
+
+
+@pytest.fixture(params=sorted(CONFIGS))
+def pair(request, builder):
+    """The reference's and the port's pipelines on the gridding build the
+    test pinned (``builder``), built once per configuration and build."""
+    return _pair(request.param, builder)
 
 
 def test_layout_off_cuda_is_block(pair):
@@ -91,6 +104,7 @@ def test_rhs_matches(pair):
     assert rel_err(p.rhs(y), ref) < 1e-5
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_image_and_resids_match(pair):
     j, p, _, _, cfg = pair
     y = j.simulate(phantom(cfg["img"]))
@@ -103,6 +117,7 @@ def test_image_and_resids_match(pair):
     assert rel_err(xp, phantom(cfg["img"])) < 0.2
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_from_arrays_matches_reference(pair):
     j, _, traj, maps, cfg = pair
     kw = cfg["kw"]
@@ -145,6 +160,7 @@ def test_stream_matches_calls(pair):
     assert isinstance(dev[0], torch.Tensor)
 
 
+@pytest.mark.parametrize("builder", BUILDERS, indirect=True)
 def test_jacobi_tol_and_errors(pair):
     j, _, traj, maps, cfg = pair
     kw = dict(cfg["kw"], iters=40)

@@ -8,10 +8,12 @@ from indigo_tpu.toeplitz import toeplitz_kernel as j_kernel
 from indigo_tpu_torch.toeplitz import toeplitz_kernel
 from indigo_tpu_torch.utils import rel_err
 
+from test_torch_native import builder  # noqa: F401
+
 
 @pytest.mark.parametrize("img,oversamp,weighted", [
     ((8, 8, 8), 1.25, True), ((12, 12), 2.0, False)])
-def test_host_matches_reference(rng, img, oversamp, weighted):
+def test_host_matches_reference(rng, img, oversamp, weighted, builder):
     traj = rng.uniform(-0.5, 0.5, size=(400, len(img)))
     w = rng.uniform(0.2, 1.0, 400).astype(np.float32) if weighted else None
     ref, rinfo = j_kernel(traj, img, oversamp=oversamp, width=4, weights=w,

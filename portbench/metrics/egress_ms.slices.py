@@ -1,0 +1,2 @@
+"""DtoH copy time per request, ms, from the trace (the slices cell)."""
+from portbench.lib.readers import egress_ms as read  # noqa: F401

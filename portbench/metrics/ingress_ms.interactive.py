@@ -1,0 +1,2 @@
+"""HtoD copy time per request, ms, from the trace (the interactive cell)."""
+from portbench.lib.readers import ingress_ms as read  # noqa: F401

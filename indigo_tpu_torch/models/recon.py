@@ -19,6 +19,7 @@ from torch import nn
 
 from ..ops.dft_cuda import kernel_spectrum, supported
 from ..ops.dft_fft import block_spectrum
+from .. import tracing
 from ..parallel.recon import sense_normal_batched, batched_cg
 from ..toeplitz import toeplitz_kernel
 from .sense import sense_nufft_op
@@ -62,46 +63,56 @@ class SenseRecon(nn.Module):
                  iters=30, tol=0.0, precond=None, dcf="radial",
                  coil_chunk=None, device="cuda"):
         super().__init__()
-        traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
-        maps = np.asarray(maps, dtype=np.complex64)
-        img_shape = maps.shape[1:]
-        d = traj.shape[1]
-        if dcf is None:
-            w = np.ones(len(traj), np.float32)
-        elif isinstance(dcf, str) and dcf == "radial":
-            w = (np.sum(traj ** 2, axis=1) ** ((d - 1) / 2.0)
-                 + (0.5 / max(img_shape)) ** (d - 1)).astype(np.float32)
-            w /= w.max()
-        elif isinstance(dcf, str) and dcf == "pipe_menon":
-            from ..noncart import pipe_menon_dcf
-            grid = tuple(int(2 * round(s * oversamp / 2)) for s in img_shape)
-            w = pipe_menon_dcf(traj, grid, width=width, device=device)
-        else:
-            w = np.asarray(dcf, np.float32).ravel()
-
-        A, plan = sense_nufft_op(traj, maps, oversamp=oversamp, width=width,
-                                 device=device)
-        w_sorted = np.tile(w[plan.perm], maps.shape[0]).astype(np.float32)
-        Tf, self.kernel_info = toeplitz_kernel(
-            traj, img_shape, oversamp=oversamp, width=width, weights=w,
-            return_info=True, warn=False, device=device)
-        # Stability floor: the restricted Toeplitz operator is PSD up to
-        # gridding error, of order the KB aliasing amplitude 10^(1-width)
-        # (3x worse below 1.25x oversampling); the default lamda is floored
-        # there, an explicit one is kept and warned about.
-        eps = 10.0 ** (1 - width) * (3.0 if oversamp < 1.25 else 1.0)
-        self.lamda_floor = eps * self.kernel_info["max"]
-        if lamda is None:
-            lamda = max(1e-3 * self.kernel_info["max"], self.lamda_floor)
-        elif lamda < self.lamda_floor:
-            warnings.warn(
-                f"SenseRecon: lamda={lamda:.3g} is below the gridding-error "
-                f"stability floor {self.lamda_floor:.3g} (kernel width="
-                f"{width}, oversamp={oversamp}); CG may converge slowly or "
-                f"stall on the indefinite part of the Toeplitz spectrum.",
-                stacklevel=2)
-        self._setup(A, plan, Tf, maps, w_sorted, lamda, iters, tol,
-                    precond, coil_chunk, device)
+        with tracing.span("indigo.init", setup=True):
+            traj = np.atleast_2d(np.asarray(traj, dtype=np.float64))
+            maps = np.asarray(maps, dtype=np.complex64)
+            img_shape = maps.shape[1:]
+            d = traj.shape[1]
+            with tracing.span("indigo.init.dcf", setup=True):
+                if dcf is None:
+                    w = np.ones(len(traj), np.float32)
+                elif isinstance(dcf, str) and dcf == "radial":
+                    w = (np.sum(traj ** 2, axis=1) ** ((d - 1) / 2.0)
+                         + (0.5 / max(img_shape)) ** (d - 1)
+                         ).astype(np.float32)
+                    w /= w.max()
+                elif isinstance(dcf, str) and dcf == "pipe_menon":
+                    from ..noncart import pipe_menon_dcf
+                    grid = tuple(int(2 * round(s * oversamp / 2))
+                                 for s in img_shape)
+                    w = pipe_menon_dcf(traj, grid, width=width,
+                                       device=device)
+                else:
+                    w = np.asarray(dcf, np.float32).ravel()
+            with tracing.span("indigo.init.plan", setup=True):
+                A, plan = sense_nufft_op(traj, maps, oversamp=oversamp,
+                                         width=width, device=device)
+                w_sorted = np.tile(w[plan.perm], maps.shape[0]).astype(
+                    np.float32)
+            with tracing.span("indigo.init.toeplitz", setup=True):
+                Tf, self.kernel_info = toeplitz_kernel(
+                    traj, img_shape, oversamp=oversamp, width=width,
+                    weights=w, return_info=True, warn=False, device=device)
+            # Stability floor: the restricted Toeplitz operator is PSD up to
+            # gridding error, of order the KB aliasing amplitude
+            # 10^(1-width) (3x worse below 1.25x oversampling); the default
+            # lamda is floored there, an explicit one is kept and warned
+            # about.
+            eps = 10.0 ** (1 - width) * (3.0 if oversamp < 1.25 else 1.0)
+            self.lamda_floor = eps * self.kernel_info["max"]
+            if lamda is None:
+                lamda = max(1e-3 * self.kernel_info["max"],
+                            self.lamda_floor)
+            elif lamda < self.lamda_floor:
+                warnings.warn(
+                    f"SenseRecon: lamda={lamda:.3g} is below the "
+                    f"gridding-error stability floor "
+                    f"{self.lamda_floor:.3g} (kernel width={width}, "
+                    f"oversamp={oversamp}); CG may converge slowly or stall "
+                    f"on the indefinite part of the Toeplitz spectrum.",
+                    stacklevel=2)
+            self._setup(A, plan, Tf, maps, w_sorted, lamda, iters, tol,
+                        precond, coil_chunk, device)
 
     @classmethod
     def from_arrays(cls, state, device="cuda", precond=None, tol=0.0,
@@ -110,69 +121,73 @@ class SenseRecon(nn.Module):
         ``convert.state_from_reference_arrays``) without recomputing any
         geometry — the port's way of loading the reference pipeline's
         weights."""
-        from ..operators import Diag, KronI, VStack
-        from ..ops.tile_interp import TileInterpPlan
-        from .sense import NufftPlan, gridding_core
+        with tracing.span("indigo.init", setup=True):
+            from ..operators import Diag, KronI, VStack
+            from ..ops.tile_interp import TileInterpPlan
+            from .sense import NufftPlan, gridding_core
 
-        maps = np.asarray(state["maps"], np.complex64)
-        nc, img_shape = maps.shape[0], tuple(maps.shape[1:])
-        tplan = TileInterpPlan(
-            state["tid"], state["wfac"], state["grid_shape"], state["tile"],
-            state["ext"], state["nt"], state["pad_lo"], state["width"])
-        deapod = np.asarray(state["deapod"], np.float32)
-        coils = VStack(
-            [Diag((deapod * maps[c]).ravel().astype(np.complex64),
-                  name=f"Map{c}", device=device) for c in range(nc)],
-            name="Coils")
-        A = KronI(nc, gridding_core(tplan, img_shape, device),
-                  name="PerCoil") * coils
-        plan = NufftPlan(img_shape, tplan.grid_shape, None, tplan.width,
-                         None, np.asarray(state["perm"], np.int64), None,
-                         deapod=deapod)
-        obj = cls.__new__(cls)
-        nn.Module.__init__(obj)
-        obj.kernel_info = None
-        obj.lamda_floor = None
-        obj._setup(A, plan, np.asarray(state["Tf"], np.float32), maps,
-                   np.asarray(state["w_sorted"], np.float32),
-                   float(state["lamda"]), int(state["iters"]), tol, precond,
-                   coil_chunk, device)
+            maps = np.asarray(state["maps"], np.complex64)
+            nc, img_shape = maps.shape[0], tuple(maps.shape[1:])
+            tplan = TileInterpPlan(
+                state["tid"], state["wfac"], state["grid_shape"],
+                state["tile"], state["ext"], state["nt"], state["pad_lo"],
+                state["width"])
+            deapod = np.asarray(state["deapod"], np.float32)
+            coils = VStack(
+                [Diag((deapod * maps[c]).ravel().astype(np.complex64),
+                      name=f"Map{c}", device=device) for c in range(nc)],
+                name="Coils")
+            A = KronI(nc, gridding_core(tplan, img_shape, device),
+                      name="PerCoil") * coils
+            plan = NufftPlan(img_shape, tplan.grid_shape, None, tplan.width,
+                             None, np.asarray(state["perm"], np.int64), None,
+                             deapod=deapod)
+            obj = cls.__new__(cls)
+            nn.Module.__init__(obj)
+            obj.kernel_info = None
+            obj.lamda_floor = None
+            obj._setup(A, plan, np.asarray(state["Tf"], np.float32), maps,
+                       np.asarray(state["w_sorted"], np.float32),
+                       float(state["lamda"]), int(state["iters"]), tol,
+                       precond, coil_chunk, device)
         return obj
 
     def _setup(self, A, plan, Tf, maps, w_sorted, lamda, iters, tol,
                precond, coil_chunk, device):
-        self.device = torch.device(device)
-        self.nc = maps.shape[0]
-        self.img_shape = tuple(maps.shape[1:])
-        self.lamda = float(lamda)
-        self.iters = int(iters)
-        self.tol = float(tol)
-        self.coil_chunk = coil_chunk
-        self._last_k = None
-        self.A = A
-        self.plan = plan
-        if self.device.type == "cuda" and supported(self.img_shape):
-            self.layout = "kernel"
-            Tk = kernel_spectrum(Tf)
-        else:
-            self.layout = "block"
-            Tk = block_spectrum(Tf)
-        self.register_buffer("Tf", torch.from_numpy(Tk))
-        self.register_buffer("maps", torch.from_numpy(maps))
-        self.register_buffer("wd", torch.from_numpy(w_sorted))
-        perm = np.asarray(plan.perm, np.int64)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(len(perm))
-        self.register_buffer("perm", torch.from_numpy(perm))
-        self.register_buffer("inv_perm", torch.from_numpy(inv))
-        if precond == "jacobi":
-            pd = torch.from_numpy(_jacobi(Tf, maps, self.lamda))
-        elif precond is None:
-            pd = None
-        else:
-            raise ValueError(f"unknown precond {precond!r}")
-        self.register_buffer("pd", pd)
-        self.to(self.device)
+        with tracing.span("indigo.init.setup", setup=True):
+            self.device = torch.device(device)
+            self.nc = maps.shape[0]
+            self.img_shape = tuple(maps.shape[1:])
+            self.lamda = float(lamda)
+            self.iters = int(iters)
+            self.tol = float(tol)
+            self.coil_chunk = coil_chunk
+            self._last_k = None
+            self._request = 0
+            self.A = A
+            self.plan = plan
+            if self.device.type == "cuda" and supported(self.img_shape):
+                self.layout = "kernel"
+                Tk = kernel_spectrum(Tf)
+            else:
+                self.layout = "block"
+                Tk = block_spectrum(Tf)
+            self.register_buffer("Tf", torch.from_numpy(Tk))
+            self.register_buffer("maps", torch.from_numpy(maps))
+            self.register_buffer("wd", torch.from_numpy(w_sorted))
+            perm = np.asarray(plan.perm, np.int64)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+            self.register_buffer("perm", torch.from_numpy(perm))
+            self.register_buffer("inv_perm", torch.from_numpy(inv))
+            if precond == "jacobi":
+                pd = torch.from_numpy(_jacobi(Tf, maps, self.lamda))
+            elif precond is None:
+                pd = None
+            else:
+                raise ValueError(f"unknown precond {precond!r}")
+            self.register_buffer("pd", pd)
+            self.to(self.device)
 
     @property
     def n_samples(self):
@@ -181,12 +196,14 @@ class SenseRecon(nn.Module):
     def _samples(self, y):
         """User-order k-space (numpy or tensor) -> flat complex64 tensor on
         the pipeline's device."""
-        if isinstance(y, torch.Tensor):
-            y = y.to(self.device, torch.complex64).reshape(-1)
-        else:
-            y = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(y).reshape(-1), dtype=np.complex64)).to(
-                    self.device)
+        with tracing.span("indigo.ingress",
+                          bytes=8 * self.nc * self.n_samples):
+            if isinstance(y, torch.Tensor):
+                y = y.to(self.device, torch.complex64).reshape(-1)
+            else:
+                y = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(y).reshape(-1), dtype=np.complex64)).to(
+                        self.device)
         if y.shape[0] != self.nc * self.n_samples:
             raise ValueError(f"expected {self.nc}x{self.n_samples} "
                              f"samples, got {tuple(y.shape)}")
@@ -194,8 +211,10 @@ class SenseRecon(nn.Module):
 
     def rhs(self, y):
         """A^H W y for user-order y: (1, n) complex64 on the device."""
-        ys = self._samples(y).reshape(self.nc, -1)[:, self.perm].reshape(-1)
-        r = self.A.apply((self.wd * ys)[:, None], adjoint=True)
+        with tracing.span("indigo.rhs"):
+            ys = self._samples(y).reshape(self.nc, -1)[:, self.perm]
+            r = self.A.apply((self.wd * ys.reshape(-1))[:, None],
+                             adjoint=True)
         return r.reshape(1, -1)
 
     def solve(self, rhs):
@@ -203,12 +222,13 @@ class SenseRecon(nn.Module):
         iteration count (1,) int32), all on the device."""
         pd = self.pd
         precond = None if pd is None else (lambda r: r * pd[None, :])
-        xs, resids, k = batched_cg(
-            lambda v: sense_normal_batched(
-                self.Tf, self.maps, v, coil_chunk=self.coil_chunk,
-                layout=self.layout),
-            rhs, lamda=self.lamda, iters=self.iters, tol=self.tol,
-            precond=precond, return_iters=True)
+        with tracing.span("indigo.solve"):
+            xs, resids, k = batched_cg(
+                lambda v: sense_normal_batched(
+                    self.Tf, self.maps, v, coil_chunk=self.coil_chunk,
+                    layout=self.layout),
+                rhs, lamda=self.lamda, iters=self.iters, tol=self.tol,
+                precond=precond, return_iters=True)
         return xs[0], resids[:, 0], k
 
     def simulate(self, x):
@@ -229,15 +249,20 @@ class SenseRecon(nn.Module):
 
         output: 'host' returns a numpy complex64 image; 'device' returns the
         complex64 tensor on the pipeline's device without waiting for it.
-        ``last_iters`` is fetched lazily on first read.
+        ``last_iters`` is fetched lazily on first read. Each call takes the
+        pipeline's next request id, which its spans carry (``tracing``).
         """
         if output not in ("host", "device"):
             raise ValueError(f"unknown output {output!r}")
-        x, resids, k = self.solve(self.rhs(y))
-        self._last_k = k
-        x = x.reshape(self.img_shape)
-        if output == "host":
-            x = x.cpu().numpy()
+        self._request += 1
+        with tracing.request(self._request):
+            x, resids, k = self.solve(self.rhs(y))
+            self._last_k = k
+            x = x.reshape(self.img_shape)
+            if output == "host":
+                with tracing.span("indigo.egress",
+                                  bytes=x.numel() * x.element_size()):
+                    x = x.cpu().numpy()
         if return_resids:
             return x, resids.cpu().numpy()
         return x
@@ -258,16 +283,20 @@ class SenseRecon(nn.Module):
         def enqueue(x):
             if not pinned:
                 return x
-            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            buf.copy_(x, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            return buf, ev
+            rid = self._request
+            with tracing.request(rid), tracing.span(
+                    "indigo.egress", bytes=x.numel() * x.element_size()):
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                buf.copy_(x, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            return buf, ev, rid
 
         def fetch(item):
             if pinned:
-                buf, ev = item
-                ev.synchronize()
+                buf, ev, rid = item
+                with tracing.request(rid), tracing.span("indigo.egress"):
+                    ev.synchronize()
                 return buf.numpy()
             return item.cpu().numpy() if output == "host" else item
 

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..utils import as_tensor, common_device
 from .collectives import all_to_all, psum
 from .mesh import Placement
@@ -84,56 +85,57 @@ def sense_normal_batched(Tf, maps, xs, coil_chunk=None, layout="raw",
     kernels work in that basis; K1 works in natural order, so xs is
     reordered to natural order, K1 runs, and the result is reordered back.
     """
-    if layout == "pallas":
-        layout = "kernel"
-    if sigma and layout != "kernel":
-        raise ValueError("the sigma basis is a kernel-layout contract "
-                         f"(layout 'kernel' or 'pallas'), got {layout!r}")
-    from ..ops.dft_cuda import (from_sigma_basis, sense_normal_cuda,
-                                sense_normal_reference, solver_sigma_axes,
-                                to_sigma_basis)
-    from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
+    with tracing.span("indigo.normal_op"):
+        if layout == "pallas":
+            layout = "kernel"
+        if sigma and layout != "kernel":
+            raise ValueError("the sigma basis is a kernel-layout contract "
+                             f"(layout 'kernel' or 'pallas'), got {layout!r}")
+        from ..ops.dft_cuda import (from_sigma_basis, sense_normal_cuda,
+                                    sense_normal_reference, solver_sigma_axes,
+                                    to_sigma_basis)
+        from ..ops.toeplitz_fft import fft_pad2x, ifft_crop2x
 
-    dev = common_device(Tf, maps, xs, device=device)
-    Tf, maps, xs = (as_tensor(a, dev) for a in (Tf, maps, xs))
-    img_shape = tuple(maps.shape[1:])
-    nc = maps.shape[0]
-    S = xs.shape[0]
-    v = xs.reshape((S,) + img_shape)
-    sig = solver_sigma_axes(img_shape) if sigma else ()
-    v = from_sigma_basis(v, sig)
+        dev = common_device(Tf, maps, xs, device=device)
+        Tf, maps, xs = (as_tensor(a, dev) for a in (Tf, maps, xs))
+        img_shape = tuple(maps.shape[1:])
+        nc = maps.shape[0]
+        S = xs.shape[0]
+        v = xs.reshape((S,) + img_shape)
+        sig = solver_sigma_axes(img_shape) if sigma else ()
+        v = from_sigma_basis(v, sig)
 
-    if layout == "raw":
-        Tf = _block_layout(Tf)
-        layout = "block"
-    if layout == "kernel":
-        v = v.to(torch.complex64).contiguous()
+        if layout == "raw":
+            Tf = _block_layout(Tf)
+            layout = "block"
+        if layout == "kernel":
+            v = v.to(torch.complex64).contiguous()
 
-        def chunk_contrib(m):
-            return sense_normal_cuda(Tf, m, v)
-    elif layout == "block":
-        def chunk_contrib(m):
-            return sense_normal_reference(Tf, m, v)
-    elif layout == "fft":
-        axes = tuple(range(2, 2 + len(img_shape)))
+            def chunk_contrib(m):
+                return sense_normal_cuda(Tf, m, v)
+        elif layout == "block":
+            def chunk_contrib(m):
+                return sense_normal_reference(Tf, m, v)
+        elif layout == "fft":
+            axes = tuple(range(2, 2 + len(img_shape)))
 
-        def chunk_contrib(m):
-            U = fft_pad2x(m[None] * v[:, None], axes)
-            u = ifft_crop2x(Tf[None, None] * U, axes)
-            return torch.sum(m.conj()[None] * u, dim=1)
-    else:
-        raise ValueError(f"unknown layout {layout!r}")
+            def chunk_contrib(m):
+                U = fft_pad2x(m[None] * v[:, None], axes)
+                u = ifft_crop2x(Tf[None, None] * U, axes)
+                return torch.sum(m.conj()[None] * u, dim=1)
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
 
-    if coil_chunk is not None:
-        coil_chunk = math.gcd(int(coil_chunk), nc)
-    if coil_chunk is None or coil_chunk >= nc:
-        out = chunk_contrib(maps)
-    else:
-        out = None
-        for c0 in range(0, nc, coil_chunk):
-            part = chunk_contrib(maps[c0:c0 + coil_chunk])
-            out = part if out is None else out + part
-    return to_sigma_basis(out, sig).reshape(S, -1).to(xs.dtype)
+        if coil_chunk is not None:
+            coil_chunk = math.gcd(int(coil_chunk), nc)
+        if coil_chunk is None or coil_chunk >= nc:
+            out = chunk_contrib(maps)
+        else:
+            out = None
+            for c0 in range(0, nc, coil_chunk):
+                part = chunk_contrib(maps[c0:c0 + coil_chunk])
+                out = part if out is None else out + part
+        return to_sigma_basis(out, sig).reshape(S, -1).to(xs.dtype)
 
 
 def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
@@ -188,28 +190,29 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
     done = (torch.sqrt(rs) <= tol * bnorm) if track else None
     resids = []
     for _ in range(iters):
-        Ap = mv(p)
-        alpha = rz / torch.clamp(pdot(p, Ap), min=1e-30)
-        xn = x + alpha.to(x.dtype) * p
-        rn = r - alpha.to(r.dtype) * Ap
-        z = applyM(rn)
-        rzn = pdot(rn, z)
-        beta = rzn / torch.clamp(rz, min=1e-30)
-        pn = z + beta.to(p.dtype) * p
-        rsn = pdot(rn, rn)
-        if track:
-            keep = done
-            x = torch.where(keep, x, xn)
-            r = torch.where(keep, r, rn)
-            p = torch.where(keep, p, pn)
-            rz = torch.where(keep, rz, rzn)
-            rs = torch.where(keep, rs, rsn)
-            k = torch.where(keep[:, 0], k, k + 1)
-            done = done | (torch.sqrt(rsn) <= tol * bnorm)
-        else:
-            x, r, p, rz, rs = xn, rn, pn, rzn, rsn
-            k = k + 1
-        resids.append(torch.sqrt(rs[:, 0]))
+        with tracing.span("indigo.cg_iter"):
+            Ap = mv(p)
+            alpha = rz / torch.clamp(pdot(p, Ap), min=1e-30)
+            xn = x + alpha.to(x.dtype) * p
+            rn = r - alpha.to(r.dtype) * Ap
+            z = applyM(rn)
+            rzn = pdot(rn, z)
+            beta = rzn / torch.clamp(rz, min=1e-30)
+            pn = z + beta.to(p.dtype) * p
+            rsn = pdot(rn, rn)
+            if track:
+                keep = done
+                x = torch.where(keep, x, xn)
+                r = torch.where(keep, r, rn)
+                p = torch.where(keep, p, pn)
+                rz = torch.where(keep, rz, rzn)
+                rs = torch.where(keep, rs, rsn)
+                k = torch.where(keep[:, 0], k, k + 1)
+                done = done | (torch.sqrt(rsn) <= tol * bnorm)
+            else:
+                x, r, p, rz, rs = xn, rn, pn, rzn, rsn
+                k = k + 1
+            resids.append(torch.sqrt(rs[:, 0]))
     resids = (torch.stack(resids) if resids
               else torch.zeros((0, S), device=rhs.device))
     if return_iters:

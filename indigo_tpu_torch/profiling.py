@@ -200,7 +200,12 @@ def measure_hbm_bandwidth(nbytes=1 << 29, k1=4, k2=12, device=None):
 def trace(logdir):
     """Capture a ``torch.profiler`` trace (host, and the card's kernels
     where there is one) into ``logdir/trace.json``, a Chrome trace (view
-    with Perfetto or chrome://tracing). Yields the profiler."""
+    with Perfetto or chrome://tracing). Yields the profiler.
+
+    The trace carries the program's layer spans (``tracing``: ``indigo.rhs``,
+    ``indigo.solve``, ``indigo.cg_iter``, ...) as host events beside the
+    operators; ``tracing.spans()`` holds the same spans in memory, with
+    their device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(str(logdir), exist_ok=True)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from . import tracing
 from .operators import Operator
 from .utils import as_dtype, as_tensor, default_device
 
@@ -104,23 +105,24 @@ def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
     done = torch.sqrt(rs) <= tol * bnorm
     resids = []
     for _ in range(maxiter):
-        Ap = matvec(p)
-        alpha = rz / _vdot(p, Ap)
-        xn = x + alpha * p
-        rn = r - alpha * Ap
-        z = applyM(rn)
-        rzn = _vdot(rn, z)
-        pn = z + (rzn / rz) * p
-        rsn = _vdot(rn, rn)
-        x = torch.where(done, x, xn)
-        r = torch.where(done, r, rn)
-        p = torch.where(done, p, pn)
-        rz = torch.where(done, rz, rzn)
-        rs = torch.where(done, rs, rsn)
-        k = torch.where(done, k, k + 1)
-        done = done | (torch.sqrt(rsn) <= tol * bnorm)
-        if history:
-            resids.append(torch.sqrt(rs) / bnorm)
+        with tracing.span("indigo.cg_iter"):
+            Ap = matvec(p)
+            alpha = rz / _vdot(p, Ap)
+            xn = x + alpha * p
+            rn = r - alpha * Ap
+            z = applyM(rn)
+            rzn = _vdot(rn, z)
+            pn = z + (rzn / rz) * p
+            rsn = _vdot(rn, rn)
+            x = torch.where(done, x, xn)
+            r = torch.where(done, r, rn)
+            p = torch.where(done, p, pn)
+            rz = torch.where(done, rz, rzn)
+            rs = torch.where(done, rs, rsn)
+            k = torch.where(done, k, k + 1)
+            done = done | (torch.sqrt(rsn) <= tol * bnorm)
+            if history:
+                resids.append(torch.sqrt(rs) / bnorm)
     info = {"iters": k, "resid": torch.sqrt(rs) / bnorm}
     if history:
         info["resids"] = (torch.stack(resids) if resids

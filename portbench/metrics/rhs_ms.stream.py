@@ -1,0 +1,3 @@
+"""The rhs's device ms per request over the traced stretch (the stream
+cell): ``indigo.rhs`` less its ``indigo.ingress`` (``lib.spans.rhs_ms``)."""
+from portbench.lib.spans import rhs_ms as read  # noqa: F401

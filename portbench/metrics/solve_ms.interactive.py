@@ -1,0 +1,3 @@
+"""The solve's device ms per request over the traced stretch (the interactive
+cell): ``indigo.solve`` (``lib.spans.solve_ms``)."""
+from portbench.lib.spans import solve_ms as read  # noqa: F401

@@ -837,3 +837,60 @@ def test_recon_gradient_on_the_card_matches_cpu(cuda):
         grads.append(yt.grad.cpu())
     assert torch.isfinite(grads[0]).all()
     assert rel_err(grads[0], grads[1]) < 1e-4
+
+
+# ---- the program's layer spans on the card (``tracing``) ------------------
+
+@pytest.fixture
+def traced_recon(cuda):
+    """One 64^3 SenseRecon call (4 coils, 3 CG steps, K1 in chunks of 2)
+    under a CUDA profiler: (its request spans, the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from indigo_tpu_torch import tracing
+    from indigo_tpu_torch.models import SenseRecon
+
+    rng = np.random.default_rng(19)
+    n, nc = 64, 4
+    dirs = rng.standard_normal((1024, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    r = (np.arange(n) - n // 2) / n
+    traj = (dirs[:, None, :] * r[None, :, None]).reshape(-1, 3)
+    maps = (0.5 + rand64c(nc, n, n, n, rng=rng) * 0.1).astype(np.complex64)
+    rec = SenseRecon(traj, maps, iters=3, coil_chunk=2, device="cuda")
+    assert rec.layout == "kernel"
+    y = rand64c(nc * len(traj), rng=rng)
+    rec(y)
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rec(y)
+        torch.cuda.synchronize()
+    recs = tracing.spans()
+    tracing.clear()
+    return recs, list(prof.profiler.kineto_results.events())
+
+
+def test_spans_add_no_device_event(traced_recon):
+    recs, events = traced_recon
+    on_card = [e for e in events if "CUDA" in str(e.device_type())]
+    assert on_card
+    for e in on_card:
+        assert not e.name().startswith("indigo."), e.name()
+        assert not e.is_user_annotation(), e.name()
+    host = [e.name() for e in events if e.name().startswith("indigo.")]
+    assert sorted(host) == sorted(s.name for s in recs)
+
+
+def test_span_device_ms_on_the_card(traced_recon):
+    from indigo_tpu_torch.tracing import self_ms
+
+    recs, _ = traced_recon
+    assert [s.name for s in recs].count("indigo.normal_op") == 3
+    assert all(s.device_ms > 0 for s in recs), recs
+    one = {s.name: s for s in recs}
+    normal = [s for s in recs if s.name == "indigo.normal_op"]
+    assert one["indigo.solve"].device_ms >= sum(s.device_ms for s in normal)
+    assert self_ms(one["indigo.solve"], recs, ("indigo.normal_op",)) >= 0
+    assert one["indigo.rhs"].device_ms >= one["indigo.ingress"].device_ms

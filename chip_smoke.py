@@ -19,8 +19,11 @@ raises and exits non-zero):
      10 CG iterations, coil_chunk 4) on the GPU: 3 acquisitions of a noisy
      smooth phantom, the same 3 through ``stream``, then the noise-free
      data once. Checks finite, decreasing residuals, a finite image, the
-     kernel launch count (5 passes per K1 call, 2 calls per CG iteration)
-     and that the plain normal op never ran on the GPU;
+     kernel launch count (5 passes per K1 call, 2 calls per CG iteration),
+     that the plain normal op never ran on the GPU, and that each of the 8
+     arrays that left the pipeline (the simulated k-space, 3 calls, 3
+     streamed images, the noise-free call) came through pinned memory
+     (``host_copy``'s counts, printed as pinned_copies);
      a small problem is also reconstructed on the GPU and on the CPU and the
      two compared, at 32^3 (periodic tiling, GridDFT) and at 16^3 (grid
      20^3, which the tiling does not cover: KBInterp * CenteredDFT).
@@ -606,6 +609,7 @@ def serving_recon(traj, maps):
 
 def phase_main_path():
     import torch
+    from indigo_tpu_torch.models.recon import host_copy
     from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
         LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
@@ -632,6 +636,7 @@ def phase_main_path():
     log("init", t0, layout=recon.layout, lamda=f"{recon.lamda:.4g}")
 
     t0 = time.time()
+    copies = (host_copy.pinned_copies, host_copy.pageable_copies)
     x_true = phantom(N)
     y0, ys = serving_data(recon, x_true)
     log("simulate", t0, samples=y0.shape[0])
@@ -676,9 +681,16 @@ def phase_main_path():
     if sense_normal_reference.cuda_calls != 0 or spmm.plain_cuda_calls:
         raise AssertionError("the plain normal op or a plain SpMM ran on "
                              "the GPU")
+    # simulate, 3 calls, 3 streamed, the noise-free call: each array pinned
+    pinned = host_copy.pinned_copies - copies[0]
+    if (pinned, host_copy.pageable_copies - copies[1]) != (8, 0):
+        raise AssertionError(f"{pinned} pinned and "
+                             f"{host_copy.pageable_copies - copies[1]} "
+                             "pageable copies to the host, expected 8 and 0")
     print(f"[summary] first_s={times[0]:.3f} warm_s="
           f"{','.join(f'{t:.3f}' for t in times[1:])} stream_s_per_acq="
           f"{t_stream:.3f} launches={sense_normal_cuda.launches} "
+          f"pinned_copies={pinned} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
           flush=True)
     launches = sense_normal_cuda.launches

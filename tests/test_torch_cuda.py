@@ -841,13 +841,9 @@ def test_recon_gradient_on_the_card_matches_cpu(cuda):
 
 # ---- the program's layer spans on the card (``tracing``) ------------------
 
-@pytest.fixture
-def traced_recon(cuda):
-    """One 64^3 SenseRecon call (4 coils, 3 CG steps, K1 in chunks of 2)
-    under a CUDA profiler: (its request spans, the profiler's events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from indigo_tpu_torch import tracing
+def _recon64(device):
+    """A 64^3 SenseRecon on ``device`` (4 coils, 3 CG steps, K1 in chunks
+    of 2), the generator it was made from, and one acquisition for it."""
     from indigo_tpu_torch.models import SenseRecon
 
     rng = np.random.default_rng(19)
@@ -857,9 +853,26 @@ def traced_recon(cuda):
     r = (np.arange(n) - n // 2) / n
     traj = (dirs[:, None, :] * r[None, :, None]).reshape(-1, 3)
     maps = (0.5 + rand64c(nc, n, n, n, rng=rng) * 0.1).astype(np.complex64)
-    rec = SenseRecon(traj, maps, iters=3, coil_chunk=2, device="cuda")
+    rec = SenseRecon(traj, maps, iters=3, coil_chunk=2, device=device)
     assert rec.layout == "kernel"
-    y = rand64c(nc * len(traj), rng=rng)
+    return rec, rng, rand64c(nc * len(traj), rng=rng)
+
+
+@pytest.fixture
+def recon64(cuda):
+    """``_recon64`` on the current card."""
+    return _recon64("cuda")
+
+
+@pytest.fixture
+def traced_recon(recon64):
+    """One call of ``recon64`` under a CUDA profiler: (its request spans,
+    the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from indigo_tpu_torch import tracing
+
+    rec, _, y = recon64
     rec(y)
     torch.cuda.synchronize()
     tracing.clear()
@@ -894,3 +907,113 @@ def test_span_device_ms_on_the_card(traced_recon):
     assert one["indigo.solve"].device_ms >= sum(s.device_ms for s in normal)
     assert self_ms(one["indigo.solve"], recs, ("indigo.normal_op",)) >= 0
     assert one["indigo.rhs"].device_ms >= one["indigo.ingress"].device_ms
+
+
+# ---- the image's way to host memory (``models.recon.host_copy``) ----------
+
+def _copies():
+    from indigo_tpu_torch.models.recon import host_copy
+    return host_copy.pinned_copies, host_copy.pageable_copies
+
+
+def _kept_solves(rec, monkeypatch):
+    """The device image of every solve ``rec`` runs from now on."""
+    seen, solve = [], rec.solve
+
+    def keep(rhs):
+        out = solve(rhs)
+        seen.append(out[0].reshape(rec.img_shape))
+        return out
+
+    monkeypatch.setattr(rec, "solve", keep)
+    return seen
+
+
+def test_recon_image_is_the_device_tensor_in_pinned_memory(recon64,
+                                                           monkeypatch):
+    rec, _, y = recon64
+    seen = _kept_solves(rec, monkeypatch)
+    pinned, pageable = _copies()
+    img = rec(y)
+    assert _copies() == (pinned + 1, pageable)
+    np.testing.assert_array_equal(img, seen[0].cpu().numpy())
+    assert img.dtype == np.complex64 and img.shape == rec.img_shape
+    assert torch.from_numpy(img).is_pinned()
+    dev = rec(y, output="device")
+    assert dev.is_cuda and _copies() == (pinned + 1, pageable)
+    k = rec.simulate(img)
+    assert _copies() == (pinned + 2, pageable)
+    assert torch.from_numpy(k).is_pinned()
+    assert rel_err(k, rec.simulate(dev)) < 1e-5
+
+
+def test_recon_images_held_at_once_are_their_own(recon64):
+    rec, rng, y = recon64
+    first = rec(y)
+    kept = first.copy()
+    second = rec(rand64c(*y.shape, rng=rng))
+    third = rec(y)
+    torch.cuda.synchronize()
+    for a, b in ((first, second), (first, third), (second, third)):
+        assert not np.shares_memory(a, b)
+    np.testing.assert_array_equal(first, kept)
+    assert rel_err(second, kept) > 1e-2
+    assert rel_err(third, kept) < 1e-5
+
+
+def test_stream_images_are_pinned_and_equal_the_calls(recon64, monkeypatch):
+    rec, rng, y = recon64
+    ys = [y] + [rand64c(*y.shape, rng=rng) for _ in range(2)]
+    calls = [rec(v) for v in ys]
+    seen = _kept_solves(rec, monkeypatch)
+    pinned, pageable = _copies()
+    out = list(rec.stream(ys))
+    assert _copies() == (pinned + 3, pageable)
+    assert len(out) == len(seen) == 3
+    for x, dev, call in zip(out, seen, calls):
+        assert torch.from_numpy(x).is_pinned()
+        np.testing.assert_array_equal(x, dev.cpu().numpy())
+        assert rel_err(x, call) < 1e-5
+    assert not np.shares_memory(out[0], out[1])
+
+
+# ---- a pipeline on a card that is not the current one ---------------------
+
+@pytest.fixture
+def second_card(cuda):
+    """cuda:1, while cuda:0 stays the current card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+def test_recon_on_a_second_card_returns_its_image(second_card, monkeypatch):
+    """``__call__``, ``stream`` and ``simulate`` of a pipeline on cuda:1
+    while cuda:0 is current: each array, read the moment it is returned,
+    is its solve's image or k-space. The second round runs on new data in
+    the pinned blocks the first left in torch's cache: a new block's
+    cudaHostAlloc waits for the card, which would hide a missing wait."""
+    rec, rng, y = _recon64(second_card)
+    seen = _kept_solves(rec, monkeypatch)
+    assert torch.cuda.current_device() == 0
+    allocs = []
+    for _ in range(2):
+        ys = [rand64c(*y.shape, rng=rng) for _ in range(3)]
+        seen.clear()
+        img = rec(ys[0])
+        got = [img.copy()]              # before anything waits on cuda:1
+        got += [x.copy() for x in rec.stream(ys[1:])]
+        k = rec.simulate(img)
+        k_got = k.copy()
+        assert len(seen) == 3
+        for x, dev in zip(got, seen):
+            assert dev.device == second_card
+            np.testing.assert_array_equal(x, dev.cpu().numpy())
+        assert torch.from_numpy(img).is_pinned()
+        np.testing.assert_array_equal(k_got, k)
+        assert rel_err(k, rec.simulate(seen[0])) < 1e-5
+        del img, k
+        torch.cuda.synchronize(second_card)
+        allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    assert allocs[1] == allocs[0]

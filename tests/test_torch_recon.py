@@ -18,6 +18,7 @@ from indigo_tpu.models import SenseRecon as JRecon
 from indigo_tpu.toeplitz import toeplitz_kernel as j_toeplitz_kernel
 from indigo_tpu_torch.convert import state_from_reference_arrays
 from indigo_tpu_torch.models import SenseRecon
+from indigo_tpu_torch.models.recon import host_copy
 from indigo_tpu_torch.utils import rand64c, rel_err
 
 from test_torch_native import BUILDERS, builder  # noqa: F401
@@ -158,6 +159,71 @@ def test_stream_matches_calls(pair):
         assert rel_err(x, p(y)) < 1e-6
     dev = list(p.stream(ys[:1], output="device"))
     assert isinstance(dev[0], torch.Tensor)
+
+
+def copies():
+    return host_copy.pinned_copies, host_copy.pageable_copies
+
+
+@pytest.fixture
+def pinned_allocs(monkeypatch):
+    """Every ``torch.empty(..., pin_memory=True)`` made while the test runs."""
+    made, empty = [], torch.empty
+
+    def counted(*a, **k):
+        if k.get("pin_memory"):
+            made.append(a)
+        return empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", counted)
+    return made
+
+
+def test_host_output_on_the_cpu_is_the_solve_tensor(pair, pinned_allocs,
+                                                    monkeypatch):
+    """On a CPU pipeline the image leaves through the pageable path: one
+    count there, none pinned, no pinned allocation, and the array is the
+    solve's own tensor, value for value and memory for memory."""
+    _, p, _, _, cfg = pair
+    y = rand64c(p.nc * p.n_samples, rng=np.random.default_rng(8))
+    seen, solve = [], p.solve
+
+    def keep(rhs):
+        out = solve(rhs)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(p, "solve", keep)
+    pinned, pageable = copies()
+    x = p(y)
+    assert copies() == (pinned, pageable + 1)
+    assert pinned_allocs == []
+    assert isinstance(x, np.ndarray)
+    assert x.shape == cfg["img"] and x.dtype == np.complex64
+    own = seen[0].numpy()
+    np.testing.assert_array_equal(x.ravel(), own)
+    assert np.shares_memory(x, own)
+    x, r = p(y, return_resids=True)     # the resids do not count
+    assert copies() == (pinned, pageable + 2)
+    assert p(y, output="device") is not None
+    assert copies() == (pinned, pageable + 2)
+
+
+def test_simulate_and_stream_on_the_cpu_count_pageable(pair, pinned_allocs):
+    _, p, _, _, cfg = pair
+    rng = np.random.default_rng(9)
+    ys = [rand64c(p.nc * p.n_samples, rng=rng) for _ in range(3)]
+    pinned, pageable = copies()
+    k = p.simulate(phantom(cfg["img"]))
+    assert isinstance(k, np.ndarray) and k.shape == (p.nc * p.n_samples,)
+    assert copies() == (pinned, pageable + 1)
+    out = list(p.stream(ys))
+    assert copies() == (pinned, pageable + 4)
+    list(p.stream(ys, output="device"))
+    assert copies() == (pinned, pageable + 4)
+    assert pinned_allocs == []
+    for y, x in zip(ys, out):
+        assert rel_err(x, p(y)) < 1e-6
 
 
 @pytest.mark.parametrize("builder", BUILDERS, indirect=True)

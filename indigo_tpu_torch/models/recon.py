@@ -22,6 +22,7 @@ from ..ops.dft_fft import block_spectrum
 from .. import tracing
 from ..parallel.recon import sense_normal_batched, batched_cg
 from ..toeplitz import toeplitz_kernel
+from ..utils import NARROW
 from .sense import sense_nufft_op
 
 __all__ = ["SenseRecon"]
@@ -228,15 +229,19 @@ class SenseRecon(nn.Module):
 
     def _samples(self, y):
         """User-order k-space (numpy or tensor) -> flat complex64 tensor on
-        the pipeline's device."""
+        the pipeline's device. 64-bit host data is narrowed on the host
+        (``indigo.narrow``), so only complex64 crosses to the card."""
         with tracing.span("indigo.ingress",
                           bytes=8 * self.nc * self.n_samples):
             if isinstance(y, torch.Tensor):
                 y = y.to(self.device, torch.complex64).reshape(-1)
             else:
+                y = np.asarray(y).reshape(-1)
+                if y.dtype in NARROW:
+                    with tracing.span("indigo.narrow", bytes=y.nbytes):
+                        y = y.astype(np.complex64)
                 y = torch.from_numpy(np.ascontiguousarray(
-                    np.asarray(y).reshape(-1), dtype=np.complex64)).to(
-                        self.device)
+                    y, dtype=np.complex64)).to(self.device)
         if y.shape[0] != self.nc * self.n_samples:
             raise ValueError(f"expected {self.nc}x{self.n_samples} "
                              f"samples, got {tuple(y.shape)}")

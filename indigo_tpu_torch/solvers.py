@@ -87,46 +87,48 @@ def cg(A, b, x0=None, lamda=0.0, tol=1e-6, maxiter=100, history=False,
           else _operand(x0, A, b.device, b.dtype))
 
     def matvec(v):
-        Av = mv(v)
+        with tracing.span("indigo.normal_op"):
+            Av = mv(v)
         if not (isinstance(lamda, (int, float)) and lamda == 0):
             Av = Av + lamda * v
         return Av
 
     applyM = _as_matvec(precond) if precond is not None else (lambda r: r)
 
-    bnorm = torch.sqrt(_vdot(b, b))
-    bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
-    x = x0
-    r = b - matvec(x0)
-    p = applyM(r)
-    rz = _vdot(r, p)
-    rs = _vdot(r, r)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
-    done = torch.sqrt(rs) <= tol * bnorm
-    resids = []
-    for _ in range(maxiter):
-        with tracing.span("indigo.cg_iter"):
-            Ap = matvec(p)
-            alpha = rz / _vdot(p, Ap)
-            xn = x + alpha * p
-            rn = r - alpha * Ap
-            z = applyM(rn)
-            rzn = _vdot(rn, z)
-            pn = z + (rzn / rz) * p
-            rsn = _vdot(rn, rn)
-            x = torch.where(done, x, xn)
-            r = torch.where(done, r, rn)
-            p = torch.where(done, p, pn)
-            rz = torch.where(done, rz, rzn)
-            rs = torch.where(done, rs, rsn)
-            k = torch.where(done, k, k + 1)
-            done = done | (torch.sqrt(rsn) <= tol * bnorm)
-            if history:
-                resids.append(torch.sqrt(rs) / bnorm)
-    info = {"iters": k, "resid": torch.sqrt(rs) / bnorm}
-    if history:
-        info["resids"] = (torch.stack(resids) if resids
-                          else torch.zeros((0,), device=b.device))
+    with tracing.span("indigo.solve"):
+        bnorm = torch.sqrt(_vdot(b, b))
+        bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+        x = x0
+        r = b - matvec(x0)
+        p = applyM(r)
+        rz = _vdot(r, p)
+        rs = _vdot(r, r)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
+        done = torch.sqrt(rs) <= tol * bnorm
+        resids = []
+        for _ in range(maxiter):
+            with tracing.span("indigo.cg_iter"):
+                Ap = matvec(p)
+                alpha = rz / _vdot(p, Ap)
+                xn = x + alpha * p
+                rn = r - alpha * Ap
+                z = applyM(rn)
+                rzn = _vdot(rn, z)
+                pn = z + (rzn / rz) * p
+                rsn = _vdot(rn, rn)
+                x = torch.where(done, x, xn)
+                r = torch.where(done, r, rn)
+                p = torch.where(done, p, pn)
+                rz = torch.where(done, rz, rzn)
+                rs = torch.where(done, rs, rsn)
+                k = torch.where(done, k, k + 1)
+                done = done | (torch.sqrt(rsn) <= tol * bnorm)
+                if history:
+                    resids.append(torch.sqrt(rs) / bnorm)
+        info = {"iters": k, "resid": torch.sqrt(rs) / bnorm}
+        if history:
+            info["resids"] = (torch.stack(resids) if resids
+                              else torch.zeros((0,), device=b.device))
     return x, info
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .operators import Diag, KronI, Operator, Perm, VStack
 from .utils import as_tensor, common_device, default_device
 
@@ -202,20 +203,21 @@ class ToeplitzNormal(Operator):
         from .ops.toeplitz_fft import fft_pad2x, ifft_crop2x
 
         K = x.shape[1]
-        v = x.reshape(self._vol + (K,)).to(torch.complex64)
-        if self._method == "fft":
-            axes = tuple(range(len(self._vol)))
-            v = ifft_crop2x(self.T[..., None] * fft_pad2x(v, axes), axes)
-        else:
-            # (K, *vol), batch leading; the kernel takes contiguous input
-            # only, so the copy is made here, in the open
-            v = v.movedim(-1, 0).contiguous()
-            if self._method == "pallas":
-                v = toeplitz_apply_cuda(self.T, v)
+        with tracing.span("indigo.toeplitz", K=K, method=self._method):
+            v = x.reshape(self._vol + (K,)).to(torch.complex64)
+            if self._method == "fft":
+                axes = tuple(range(len(self._vol)))
+                v = ifft_crop2x(self.T[..., None] * fft_pad2x(v, axes), axes)
             else:
-                v = toeplitz_apply_block(self.T, v)
-            v = v.movedim(0, -1)
-        return v.reshape(-1, K)
+                # (K, *vol), batch leading; the kernel takes contiguous
+                # input only, so the copy is made here, in the open
+                v = v.movedim(-1, 0).contiguous()
+                if self._method == "pallas":
+                    v = toeplitz_apply_cuda(self.T, v)
+                else:
+                    v = toeplitz_apply_block(self.T, v)
+                v = v.movedim(0, -1)
+            return v.reshape(-1, K)
 
     def cost(self, ncols=1):
         K = ncols

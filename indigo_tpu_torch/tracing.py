@@ -25,14 +25,28 @@ stack, that request id; nested spans take their parent's. Set-up phases
 (``span(name, setup=True)``) are recorded with or without a profiler, host
 stamps only, in a buffer of their own that request spans never evict.
 
-The spans of the port, by layer: ``indigo.ingress``
-(``SenseRecon._samples``), ``indigo.rhs`` (``SenseRecon.rhs``),
-``indigo.solve`` (``SenseRecon.solve``), ``indigo.cg_iter`` (each step of
-``parallel.recon.batched_cg`` and ``solvers.cg``), ``indigo.normal_op``
-(``parallel.recon.sense_normal_batched``), ``indigo.egress`` (the image to
-host memory), and the set-up phases ``indigo.init`` > ``indigo.init.dcf``
-/ ``.plan`` / ``.toeplitz`` / ``.setup`` (``SenseRecon.__init__``;
-``from_arrays`` records ``indigo.init`` and ``.setup``).
+The spans of the port, by layer:
+
+* boundary in: ``indigo.ingress`` (``SenseRecon._samples``), and inside
+  it, or in ``utils.as_tensor``, ``indigo.narrow`` (the host-side cast of
+  64-bit host data to 32-bit; 32-bit data records none);
+* rhs: ``indigo.rhs`` (``SenseRecon.rhs``);
+* solve: ``indigo.solve`` (``SenseRecon.solve``; the whole of
+  ``solvers.cg``), ``indigo.cg_iter`` (each step of
+  ``parallel.recon.batched_cg`` and ``solvers.cg``);
+* normal op: ``indigo.normal_op`` (``parallel.recon.sense_normal_batched``;
+  in ``solvers.cg`` each apply of the operator, the zero start's residual
+  included, without the ``lamda * v`` add);
+* Toeplitz leaf: ``indigo.toeplitz`` (``toeplitz.ToeplitzNormal.apply``:
+  K2 or the plain round trip with the batch-leading copies in and out;
+  attrs ``K``, the batch, and ``method``);
+* boundary out: ``indigo.egress`` (the image to host memory);
+* set-up: ``indigo.init`` > ``indigo.init.dcf`` / ``.plan`` /
+  ``.toeplitz`` / ``.setup`` (``SenseRecon.__init__``; ``from_arrays``
+  records ``indigo.init`` and ``.setup``).
+
+A tree solve thus records ``indigo.solve`` > (``indigo.normal_op``,
+``indigo.cg_iter`` > ``indigo.normal_op``) > ``indigo.toeplitz``.
 
 This module imports torch only, so that any module of the port can import
 it.

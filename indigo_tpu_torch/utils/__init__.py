@@ -19,6 +19,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import tracing
+
 __all__ = ["rand64c", "randM", "Timer", "rel_err"]
 
 # what the reference's 32-bit boundary makes of 64-bit host data
@@ -73,9 +75,10 @@ def as_tensor(x, device=None, dtype=None):
     as a tensor, by the reference's boundary rule.
 
     A tensor keeps its dtype and device unless ``dtype`` / ``device`` are
-    given. Host data is narrowed (float64 -> float32, complex128 ->
-    complex64; integer and bool arrays keep their dtype, which torch
-    indexing takes) unless ``dtype`` is given, and goes to ``device``:
+    given. Host data is narrowed on the host (float64 -> float32,
+    complex128 -> complex64, in an ``indigo.narrow`` span; integer and bool
+    arrays keep their dtype, which torch indexing takes) unless ``dtype``
+    is given, and goes to ``device``:
     by default the card, and an error where there is none
     (:func:`default_device`).
     """
@@ -85,8 +88,9 @@ def as_tensor(x, device=None, dtype=None):
         return x.to(device=device, dtype=dtype)
     dev = default_device(device)
     a = x.toarray() if sp.issparse(x) else np.asarray(x)
-    if dtype is None:
-        a = a.astype(NARROW.get(a.dtype, a.dtype), copy=False)
+    if dtype is None and a.dtype in NARROW:
+        with tracing.span("indigo.narrow", bytes=a.nbytes):
+            a = a.astype(NARROW[a.dtype])
     if not a.flags.writeable:
         a = a.copy()
     # cast on the host, so that only the narrow data crosses to the card

@@ -4,8 +4,11 @@ Off (no profiler running) a span checks the profiler's state once and does
 nothing else; under a profiler one ``SenseRecon`` call gives the tree
 rhs > ingress, solve > cg_iter > normal_op, egress, with one request id,
 each span a host event of the profiler's own trace (never a user
-annotation) on its clock. Set-up phases are recorded without a profiler
-and kept apart from the bounded request buffer.
+annotation) on its clock. ``solvers.cg`` on the operator tree gives solve >
+(normal_op, cg_iter > normal_op) > toeplitz, and 64-bit host data records
+one narrow span where the boundary casts it (32-bit records none). Set-up
+phases are recorded without a profiler and kept apart from the bounded
+request buffer.
 """
 import json
 import time
@@ -166,8 +169,109 @@ def test_solvers_cg_records_one_iteration_per_step(maxiter, tol):
     with profile(activities=[ProfilerActivity.CPU]):
         solvers.cg(lambda v: A @ v, b, tol=tol, maxiter=maxiter)
     recs = tracing.spans()
-    assert [s.name for s in recs] == ["indigo.cg_iter"] * maxiter
-    assert all(s.parent is None for s in recs)
+    # the solve, its zero start's residual apply, then each step with the
+    # operator apply inside it
+    assert [s.name for s in recs] == (
+        ["indigo.solve", "indigo.normal_op"]
+        + ["indigo.cg_iter", "indigo.normal_op"] * maxiter)
+    solve = recs[0]
+    assert solve.parent is None
+    assert recs[1].parent == solve.id
+    for it, op in zip(recs[2::2], recs[3::2]):
+        assert it.parent == solve.id and op.parent == it.id
+
+
+def toeplitz_tree(n=8, nc=2, seed=3):
+    from indigo_tpu_torch.toeplitz import sense_normal_toeplitz
+    rng = np.random.default_rng(seed)
+    Tf = (1.0 + rng.random((2 * n,) * 3)).astype(np.float32)
+    maps = (0.5 + 0.1 * rand64c(nc, n, n, n, rng=rng)).astype(np.complex64)
+    return sense_normal_toeplitz(Tf, maps, device="cpu"), \
+        torch.from_numpy(rand64c(n ** 3, rng=rng))
+
+
+@pytest.mark.parametrize("maxiter", [3, 5])
+def test_a_tree_solve_gives_solve_iter_normal_op_toeplitz(maxiter):
+    N, b = toeplitz_tree()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        solvers.cg(N, b, lamda=0.1, tol=0.0, maxiter=maxiter)
+    recs = tracing.spans()
+    tracing.clear()
+    count = Counter(s.name for s in recs)
+    assert count == {"indigo.solve": 1, "indigo.cg_iter": maxiter,
+                     "indigo.normal_op": maxiter + 1,
+                     "indigo.toeplitz": maxiter + 1}
+    by_id = {s.id: s for s in recs}
+
+    def chain(s):
+        out = []
+        while s is not None:
+            out.append(s.name)
+            s = by_id.get(s.parent)
+        return out
+
+    leaves = [chain(s) for s in recs if s.name == "indigo.toeplitz"]
+    assert leaves[0] == ["indigo.toeplitz", "indigo.normal_op",
+                         "indigo.solve"]
+    assert all(c == ["indigo.toeplitz", "indigo.normal_op",
+                     "indigo.cg_iter", "indigo.solve"] for c in leaves[1:])
+    # one apply of the leaf per operator apply, the coils in its batch
+    assert all(s.attrs == {"K": 2, "method": "pallas"} for s in recs
+               if s.name == "indigo.toeplitz")
+    for s in recs:
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+
+
+def test_a_tree_solve_off_records_nothing():
+    N, b = toeplitz_tree()
+    tracing.clear()
+    solvers.cg(N, b, lamda=0.1, tol=0.0, maxiter=2)
+    assert tracing.spans() == []
+
+
+def recorded(fn):
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    recs = tracing.spans()
+    tracing.clear()
+    return recs
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_the_pipeline_narrows_64_bit_k_space_in_a_span(recon, dtype):
+    rec, y = recon
+    recs = recorded(lambda: rec(y.astype(dtype)))
+    narrow = by_name(recs, "indigo.narrow")
+    if dtype == np.complex64:
+        assert narrow == []
+    else:
+        (s,) = narrow
+        by_id = {r.id: r for r in recs}
+        assert by_id[s.parent].name == "indigo.ingress"
+        assert s.attrs == {"bytes": y.astype(dtype).nbytes}
+    # the rest of the call's tree is the complex64 call's
+    assert Counter(r.name for r in recs if r.name != "indigo.narrow") \
+        == REQUEST_SPANS
+
+
+@pytest.mark.parametrize("dtype,narrows", [
+    (np.complex64, False), (np.float32, False), (np.int64, False),
+    (np.complex128, True), (np.float64, True)])
+def test_as_tensor_narrows_64_bit_host_data_in_a_span(dtype, narrows):
+    from indigo_tpu_torch.utils import as_tensor
+    a = np.arange(6).astype(dtype)
+    out = []
+    recs = recorded(lambda: out.append(as_tensor(a, "cpu")))
+    assert [s.name for s in recs] == ["indigo.narrow"] * narrows
+    if narrows:
+        assert recs[0].attrs == {"bytes": a.nbytes}
+        assert out[0].element_size() == a.itemsize // 2
+    # a dtype asked for is the caller's cast, not the boundary's narrowing
+    assert recorded(lambda: as_tensor(a, "cpu", torch.complex64)) == []
 
 
 def test_setup_spans_without_a_profiler(recon):

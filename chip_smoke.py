@@ -13,13 +13,15 @@ raises and exits non-zero):
      at 128^3/nc=8 and 256^3/nc=4 the kernel, plain and library times
      (cuFFT through sense_normal_batched(layout="fft"), which the port's
      path never calls), in turns plain, kernel, library, kernel, plain, the
-     five passes' ms, each pass's share of its bytes floor, and the bound.
+     three passes' ms (z forward, plane, z inverse), each pass's share of
+     its bytes floor, the bound, and the calls that took the plane kernel
+     (``plane_calls``, which must equal the calls).
   3. main path: SenseRecon at the serving-lane size (256^3, 8 coils, 4096 x
      256 kooshball = 1,048,576 samples per coil, oversamp 1.25, width 4,
      10 CG iterations, coil_chunk 4) on the GPU: 3 acquisitions of a noisy
      smooth phantom, the same 3 through ``stream``, then the noise-free
      data once. Checks finite, decreasing residuals, a finite image, the
-     kernel launch count (5 passes per K1 call, 2 calls per CG iteration),
+     kernel launch count (3 passes per K1 call, 2 calls per CG iteration),
      that the plain normal op never ran on the GPU, and that each of the 8
      arrays that left the pipeline (the simulated k-space, 3 calls, 3
      streamed images, the noise-free call) came through pinned memory
@@ -54,8 +56,9 @@ raises and exits non-zero):
      toeplitz_apply_reference on the card at 8^3 .. 256^3 and at
      non-power-of-two axes (rel_err <= 1e-4), and at 128^3 and 256^3 with
      B = 8 the kernel, plain and library times (cuFFT through
-     ops/toeplitz_fft; plain, kernel, library, kernel, plain), the five
-     passes' ms, each pass's share of its bytes floor, and the bound.
+     ops/toeplitz_fft; plain, kernel, library, kernel, plain), the three
+     passes' ms, each pass's share of its bytes floor, the bound and
+     ``plane_calls``, as in phase 2.
   6b. Toeplitz operator-tree path: the reference's 3D CG-SENSE recipe with
      Pipe-Menon DCF at the serving-lane size (256^3, 8 coils, the same
      kooshball, oversamp 1.25, width 4): pipe_menon_dcf (20 iterations, on
@@ -63,8 +66,8 @@ raises and exits non-zero):
      (coils.H * KronI(8, ToeplitzNormal) * coils), rhs = A^H W y, then two
      solves of cg(N, rhs, lamda, tol=0, maxiter=10, history=True) and one
      on the noise-free data. Checks
-     finite, decreasing residuals, a finite image, exactly 55 K2 launches
-     per solve (11 applies x 5 passes), no plain Toeplitz apply and no K1
+     finite, decreasing residuals, a finite image, exactly 33 K2 launches
+     per solve (11 applies x 3 passes), no plain Toeplitz apply and no K1
      launch on the GPU.
   6c. cross-checks: one tree apply (K2) against sense_normal_batched
      (layout "kernel", K1) on the same spectrum; the 256^3 tree solve
@@ -124,7 +127,7 @@ raises and exits non-zero):
          forward and inverse, against torch.fft on the card (<= 1e-5);
      (a) sense_batch_recon(mesh=(slice=2, coil=2)) on 2 right-hand sides,
          1 slice x 4 coils per rank, against sense_batch_recon(mesh=None)
-         (<= 1e-4); K1 launches on every rank (5 per normal-op call), no
+         (<= 1e-4); K1 launches on every rank (3 per normal-op call), no
          plain normal op on the card, finite decreasing residuals;
      (b) sense_vol_recon(mesh=(vol=4)) and sense_vol_recon2 (vz=2, vy=2) on
          one of them, against the same single-device solve (<= 1e-4);
@@ -170,7 +173,7 @@ raises and exits non-zero):
      their device path (their gathers ran on the card, the host gridding
      matrix was never built; seconds printed); sense_normal_toeplitz(Tf,
      maps_c128) lives on the card with complex64 / float32 buffers;
-     cg(N, b_c128, maxiter=10) launches K2 (55 launches per solve) and
+     cg(N, b_c128, maxiter=10) launches K2 (33 launches per solve) and
      returns complex64 on the card, equal (<= 1e-4) to the same solve built
      from complex64 tensors with device="cuda" (both timed, and the numpy
      b's narrowing and copy to the card apart); on the 2D radial lane a bare
@@ -443,35 +446,44 @@ def profile_solve(label, fn, kernel=None, iters=None):
           flush=True)
 
 
-def toeplitz_timing(kernel, plain, library, shape, S, nc):
+def toeplitz_timing(kernel, plain, library, shape, S, nc, wrapper):
     """Kernel, plain and library ms in turns (plain, kernel, library,
-    kernel, plain), then the five passes' ms from one evented call, the
-    bound (toeplitz_bound) and each pass's share of its own bytes floor
-    (pass_bytes over the card's memory rate)."""
+    kernel, plain), then the three passes' ms (z forward, plane, z inverse)
+    from one evented call, the bound (toeplitz_bound), each pass's share of
+    its own bytes floor (pass_bytes over the card's memory rate), and the
+    calls of ``wrapper`` (K1's or K2's) that took the plane kernel against
+    all its calls here, which must be equal."""
     import torch
     reps = TIMING_REPS[shape[0]]
+    from indigo_tpu_torch.ops.dft_cuda import LAUNCHES_PER_CALL
+    planes0, launches0 = wrapper.plane_calls, wrapper.launches
     p1 = timed(plain, reps["plain"])
     k1 = timed(kernel, reps["kernel"])
     lib = timed(library, reps["library"])
     k2 = timed(kernel, reps["kernel"])
     p2 = timed(plain, reps["plain"])
-    from indigo_tpu_torch.ops.dft_cuda import LAUNCHES_PER_CALL
     ev = [torch.cuda.Event(enable_timing=True)
           for _ in range(LAUNCHES_PER_CALL + 1)]
     kernel(events=ev)
     torch.cuda.synchronize()
     per = [ev[i].elapsed_time(ev[i + 1]) for i in range(LAUNCHES_PER_CALL)]
+    calls = (wrapper.launches - launches0) // LAUNCHES_PER_CALL
+    planes = wrapper.plane_calls - planes0
+    if planes != calls:
+        raise AssertionError(f"{wrapper.__name__} at {shape}: {planes} "
+                             f"plane-kernel calls of {calls}")
     b_ms, b_by = toeplitz_bound(shape, S, nc)
     floors = [b / HBM_BYTES_PER_S * 1e3 for b in pass_bytes(shape, S, nc)]
     timing = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
                   bound_ms=b_ms, bound_by=b_by)
     fields = dict(kernel_ms=f"{k1:.3f},{k2:.3f}",
                   plain_ms=f"{p1:.3f},{p2:.3f}", library_ms=f"{lib:.3f}",
-                  fz_fy_x_iy_iz_ms=",".join(f"{x:.3f}" for x in per),
+                  fz_plane_iz_ms=",".join(f"{x:.3f}" for x in per),
                   pass_share_of_bytes_floor=",".join(
                       f"{f / t:.3f}" for f, t in zip(floors, per)),
                   bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-                  share_of_bound=f"{b_ms / timing['ms']:.4f}")
+                  share_of_bound=f"{b_ms / timing['ms']:.4f}",
+                  plane_calls=planes, calls=calls)
     return timing, fields
 
 
@@ -532,7 +544,7 @@ def phase_kernels():
             timing[shape[0]], tf = toeplitz_timing(
                 lambda events=None: sense_normal_cuda(T, m, v, events=events),
                 lambda: sense_normal_reference(T, m, v), library, shape, S,
-                nc)
+                nc, sense_normal_cuda)
             fields.update(tf, rel_err_library=f"{lib_err:.3e}")
             del T_raw, xs
         del T, m, v
@@ -1149,7 +1161,8 @@ def phase_toeplitz_kernels():
                                      f"rel_err {lib_err:.3e}")
             timing[shape[0]], tf = toeplitz_timing(
                 lambda events=None: toeplitz_apply_cuda(T, u, events=events),
-                lambda: toeplitz_apply_reference(T, u), library, shape, B, 0)
+                lambda: toeplitz_apply_reference(T, u), library, shape, B, 0,
+                toeplitz_apply_cuda)
             fields.update(tf, rel_err_library=f"{lib_err:.3e}")
             del T_raw
         del T, u
@@ -3284,10 +3297,10 @@ def main():
     toeplitz_src = "indigo_tpu_torch/csrc/sense_normal.cu"
     spmm_src = "indigo_tpu_torch/csrc/block_spmm.cu"
     record = {"kernels": [
-        entry("sense_normal_cuda (K1, five passes)", toeplitz_src,
+        entry("sense_normal_cuda (K1, three passes)", toeplitz_src,
               "indigo_tpu/ops/dft_pallas.py:643", launches, worst,
               timing[256]),
-        entry("toeplitz_apply_cuda (K2, five passes)", toeplitz_src,
+        entry("toeplitz_apply_cuda (K2, three passes)", toeplitz_src,
               "indigo_tpu/ops/dft_pallas.py:759", k2_launches, k2_worst,
               k2_timing[256]),
         entry("jag_spmm_cuda (K3)", spmm_src, "indigo_tpu/ops/ell_spmm.py:109",

@@ -8,33 +8,36 @@
 //   K1 sense_normal_pallas   (pallas_call at :643, :668, :690)
 //   K2 toeplitz_apply_pallas (pallas_call at :759, :781, :803)
 // K2 is K1 with the coil fusion turned off (one "coil", no maps): the same
-// five kernels, kern_fwd and kern_inv instantiated with kMaps = false.
+// three kernels, kern_fwd and kern_inv instantiated with kMaps = false.
 //
 // v (S, n1, n2, n3), maps (cc, n1, n2, n3), out (S, n1, n2, n3): complex64
 // (float2), natural (z, y, x) order, x contiguous. Tf is the real
 // doubled-grid spectrum in block (even|odd) layout on every axis,
-// (2n1, 2n2, 2n3). Intermediates t1 (B, 2n1, n2, n3) and t2 (B, 2n1, 2n2,
-// n3), B = S * cc, live in device memory in the same block layout.
+// (2n1, 2n2, 2n3). One intermediate, t1 (B, 2n1, n2, n3), B = S * cc,
+// lives in device memory, its z axis in the same block layout.
 //
 // Each axis runs the zero-aware doubled transform, as ops/toeplitz_fft.py:
 //   forward            X_even = F_n x,  X_odd = F_n (t x),  t_j = e^{-i pi j/n}
 //   inverse with crop  x = (IF_n X_even + conj(t) IF_n X_odd) / (2n)
 // so no transform touches the padding zeros and the frequencies come out in
-// the block layout directly. Five launches per op, one axis pass each:
-//   kern_fwd (z, map multiply on load) -> kern_fwd (y) -> kern_x (forward x,
-//   spectrum multiply, inverse x, in place) -> kern_inv (y) -> kern_inv (z,
-//   conj-map coil sum).
+// the block layout directly. Three launches per op:
+//   kern_fwd (z, map multiply on load) -> kern_x (the plane pass: y forward,
+//   x forward, spectrum multiply, x inverse, y inverse with crop, on each
+//   z-frequency plane of t1, in place) -> kern_inv (z, conj-map coil sum).
 //
-// Bound on this card (NVIDIA H100 SXM, 67 TFLOP/s f32, 3.35 TB/s): the
-// FFT round trip is ~140 n^3 log2(n) flops per coil (1.9e10 at 256^3)
-// against ~1.34 GB of inputs and output at 256^3 / 4 coils, so operations
-// set the bound: ~1.15 ms for K1 at 256^3 / nc 4, ~2.3 ms for K2 at B 8
-// (chip_smoke.py computes it from each run's shapes). The five passes must
-// move ~3.7 GB per coil through device memory at 256^3 (t1 and t2 each
-// written and read once), the floor of this design (~1.1 ms per coil at
-// 3.35 TB/s); what the design does about it is to keep every FFT stage
-// and the spectrum multiply out of device memory. chip_smoke.py prints
-// each pass's share of its bytes floor (PERF.md).
+// Bytes. A unit is one n1 n2 n3 complex64 volume (134 MB at 256^3). The five
+// passes this replaced (z, y, x, y, z) also wrote and read t2 (B, 2n1, 2n2,
+// n3), the y-spectrum of every plane: 27 units per coil volume through
+// device memory, 20 of them in the three middle passes. The plane pass
+// keeps a plane's y-spectrum (2n2 x n3, 1 MB at 256^2) in a ring of RING
+// planes that stays in the 50 MB L2: t1 is read and written once per coil
+// (4 units) and the f32 spectrum (4 units) is shared by the B volumes of
+// a z-frequency. Bound on this card (NVIDIA H100 SXM, 67 TFLOP/s f32, 3.35
+// TB/s): the FFT round trip is ~140 n^3 log2(n) flops per coil (1.9e10 at
+// 256^3) against ~1.34 GB of inputs and output at 256^3 / 4 coils, so
+// operations set the bound: ~1.15 ms for K1 at 256^3 / nc 4, ~2.3 ms for
+// K2 at B 8 (chip_smoke.py computes it from each run's shapes, and each
+// pass's share of its bytes floor from profiling.pass_bytes).
 //
 // Design:
 //  * Each n-point transform is a two-factor FFT, n = p q with p in {8, 16}
@@ -48,34 +51,47 @@
 //    forward's p-point stage reads its stride-q runs straight from device
 //    memory (both halves from one load, the odd one times t), and the
 //    inverse's p-point stage hands its results straight to device memory
-//    (or K1's coil accumulator). Row q a + j holds frequency a + p j, so a
-//    forward pencil's q-point stage writes block-layout rows to device
-//    memory directly, and an inverse pencil's reads them directly.
+//    (or K1's coil accumulator).
 //  * Twiddles: one table per axis, W_2n^k for k < 2n, built in float64 on
 //    the host and rounded to f32; a block copies it to shared memory. It
 //    holds t, W_n, and the small factors' W_p, W_q (W_p^{p/4} = -i is a
 //    swap). No stage matrix exists.
-//  * z and y passes: a block owns a pencil bundle, the whole transform axis
-//    by 16 contiguous x-columns (128 B rows), even and odd halves side by
-//    side in shared memory (~70 KB at n = 256, two blocks per SM); a warp's
-//    accesses to device memory cover whole 128 B rows.
-//  * kern_x: a block of 128 threads owns L whole x-lines of one volume (L
-//    n3 >= 2048 elements; 8 lines at n3 = 256, four blocks per SM). Its
-//    spectrum rows arrive by cp.async while the first stage runs; the
-//    forward q-point DFT, the spectrum multiply and the inverse q-point DFT
-//    run back to back in registers. The blocks of the B volumes that read
-//    the same spectrum rows run next to each other, so the spectrum comes
-//    from L2 after the first.
-//  * K1's coil sum: the z inverse block loops over the coils of its own
-//    output bundle and accumulates conj(m_c) * result in registers (16
-//    complex per thread): no atomics, deterministic.
+//  * Pencil bundles (the z passes, and the plane pass's y stages): a block
+//    owns the whole transform axis by 16 contiguous x-columns (128 B rows),
+//    even and odd halves side by side in shared memory (~70 KB at n = 256,
+//    two blocks per SM); a warp's accesses to device memory cover whole
+//    128 B rows. K1's coil sum: the z inverse block loops over the coils of
+//    its own output bundle and accumulates conj(m_c) * result in registers
+//    (16 complex per thread): no atomics, deterministic.
+//  * The plane pass (kern_x) is one persistent cooperative launch, two
+//    blocks per SM, over a list of tasks. Plane p (z-frequency p / B of
+//    volume p % B) takes in step p its y forward, a task per 16-column
+//    bundle, from t1 into ring slot p % RING; in step p + DX its x round
+//    trip, a task per 16 y-frequency lines (forward x, spectrum rows by
+//    cp.async, inverse x, the forward q-point DFT, the spectrum multiply and
+//    the inverse q-point DFT back to back in registers); in step p + DI its
+//    y inverse with crop from the slot back into t1. A free block takes the
+//    next task of the list (an atomic counter); a task first waits, on a
+//    per-plane count in device memory, for the tasks it needs, which come
+//    earlier in the list and are held by running blocks, so every wait ends.
+//    The lag between a plane's stages hides most waits; the B volumes of
+//    one z-frequency run side by side, so its spectrum plane comes from L2
+//    after the first; the slot data a y inverse has read is discarded from
+//    L2 without a write-back. Data written by another block loads through
+//    L2 (ld.global.cg), never from a stale L1 line.
+//  * A cluster of 8 CTAs holding each plane in distributed shared memory
+//    was built first and measured slower: a CTA moved 256 KB per plane
+//    through DSMEM at 11-17 B per cycle, about an SM's share of device
+//    memory bandwidth, with three cluster barriers per plane (PERF.md
+//    §6).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int NT = 256;    // threads per block of the z and y passes
-constexpr int XT = 128;    // threads per block of the x pass
-constexpr int WC = 16;     // x-columns per pencil bundle (z and y passes)
+constexpr int NT = 256;    // threads per block of every kernel
+constexpr int WC = 16;     // x-columns per pencil bundle
 constexpr int MAXQ = 32;   // largest second factor
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -335,25 +351,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Forward pass along a strided axis (z or y) over a pencil bundle: reads
-// rows r < n of `in` (times `mp` when kMaps), ncol columns, and writes
-// rows k < 2n of `out` in block layout. Strides in elements.
+// Loads of data that another block of the same kernel wrote: through L2
+// only (ld.global.cg), never a line this SM's L1 kept from before.
+template <bool kCg>
+__device__ __forceinline__ float2 ld2(const float2* p) {
+  return kCg ? __ldcg(p) : *p;
+}
+
+// Forward pass along a strided axis (z or y) over one pencil bundle: reads
+// rows r < n of src (times mp when kMaps), ncol <= WC columns, and writes
+// rows k < 2n of dst in block layout. Strides in elements. sm: the table
+// and both halves' buffers.
 template <int P, int Q, bool kMaps>
-__global__ void __launch_bounds__(NT, 2)
-    kern_fwd(const float2* __restrict__ in, const float2* __restrict__ maps,
-             const float2* __restrict__ tab, float2* __restrict__ out, int cc,
-             int n, int ncols, long long in_b, long long map_b,
-             long long out_b, long long in_o, long long out_o,
-             long long in_row, long long out_row) {
-  extern __shared__ __align__(16) float2 sm[];
+__device__ __forceinline__ void fwd_bundle(const float2* src,
+                                           const float2* mp, float2* dst,
+                                           const float2* __restrict__ tab,
+                                           float2* sm, int n, int ncol,
+                                           long long in_row,
+                                           long long out_row) {
   float2* w = sm;
   const Buf s{sm + 2 * n, n * WC, WC, 1, WC};
-  const int x0 = blockIdx.x * WC, ncol = min(WC, ncols - x0), q = n / P;
-  const long long o = blockIdx.y, vol = blockIdx.z;
-  const float2* src = in + (vol / cc) * in_b + o * in_o + x0;
-  const float2* mp =
-      kMaps ? maps + (vol % cc) * map_b + o * in_o + x0 : nullptr;
-  float2* dst = out + vol * out_b + o * out_o + x0;
+  const int q = n / P;
   load_table(w, tab, n);
   __syncthreads();
   // first stage straight from device memory
@@ -382,25 +400,24 @@ __global__ void __launch_bounds__(NT, 2)
       });
 }
 
-// Inverse-with-crop pass along a strided axis over a pencil bundle: reads
-// rows k < 2n of `in` (block layout), writes rows r < n of `out`. With
-// kMaps (K1's z pass) the block loops over the cc coils of output volume
-// blockIdx.z and writes sum_c conj(m_c) * result, accumulated in registers.
-template <int P, int Q, bool kMaps>
-__global__ void __launch_bounds__(NT, 2)
-    kern_inv(const float2* __restrict__ in, const float2* __restrict__ maps,
-             const float2* __restrict__ tab, float2* __restrict__ out, int cc,
-             int n, int ncols, long long in_b, long long map_b,
-             long long out_b, long long in_o, long long out_o,
-             long long in_row, long long out_row) {
+// Inverse-with-crop pass along a strided axis over one pencil bundle:
+// reads rows k < 2n of the cc sources src + c in_b (block layout), writes
+// rows r < n of dst; with kMaps (K1's z pass) it writes sum_c conj(m_c)
+// * result, m_c = mp + c map_b, accumulated in registers. kCg: the sources
+// were written by this kernel.
+template <int P, int Q, bool kMaps, bool kCg>
+__device__ __forceinline__ void inv_bundle(const float2* src,
+                                           const float2* mp, float2* dst,
+                                           const float2* __restrict__ tab,
+                                           float2* sm, int cc, int n,
+                                           int ncol, long long in_b,
+                                           long long map_b, long long in_row,
+                                           long long out_row) {
   // runs per thread of the last stage: q WC <= kRuns NT, as q <= 256 / P
   constexpr int kRuns = 16 / P;
-  extern __shared__ __align__(16) float2 sm[];
   float2* w = sm;
   const Buf s{sm + 2 * n, n * WC, WC, 1, WC};
-  const int x0 = blockIdx.x * WC, ncol = min(WC, ncols - x0), q = n / P;
-  const long long o = blockIdx.y, vol = blockIdx.z;
-  float2* dst = out + vol * out_b + o * out_o + x0;
+  const int q = n / P;
   const float scale = 0.5f / n;
   float2 acc[kRuns * P];
 #pragma unroll
@@ -408,18 +425,18 @@ __global__ void __launch_bounds__(NT, 2)
   load_table(w, tab, n);
   __syncthreads();
   for (int c = 0; c < cc; ++c) {
-    const float2* src = in + (vol * cc + c) * in_b + o * in_o + x0;
+    const float2* sc = src + c * in_b;
     run_pass<Q, true, true>(
         P, q, WC, w, 2 * n,
         [&](int h, int a, int j, int col) {
-          return col < ncol ? src[(h * n + a + P * j) * in_row + col]
+          return col < ncol ? ld2<kCg>(sc + (h * n + a + P * j) * in_row + col)
                             : make_float2(0.f, 0.f);
         },
         [&](int h, int a, int k, int col, float2 val) {
           s.p[h * s.bs + (q * a + k) * WC + col] = val;
         });
     __syncthreads();
-    const float2* mp = kMaps ? maps + c * map_b + o * out_o + x0 : nullptr;
+    const float2* mc = kMaps ? mp + c * map_b : nullptr;
     // the last stage straight to registers (K1) or device memory (K2):
     // columns fastest, so each access covers whole 128-byte rows
 #pragma unroll
@@ -432,7 +449,7 @@ __global__ void __launch_bounds__(NT, 2)
                             if (kMaps)  // acc += conj(m) val
                               acc[i * P + m] = cadd(
                                   acc[i * P + m],
-                                  cmulc(val, mp[x * out_row + col]));
+                                  cmulc(val, mc[x * out_row + col]));
                             else
                               dst[x * out_row + col] = val;
                           });
@@ -451,39 +468,67 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// The x pass on whole lines of t2 (B, 2n1, 2n2, n3): forward x (n3 ->
-// 2n3), times the spectrum row, inverse x (2n3 -> n3), in place. Block
-// blockIdx.x = rb * B + b owns lines [rb L, rb L + L) of volume b; L
-// divides rows_tf = 4 n1 n2. The block's spectrum rows arrive in shared
-// memory by cp.async while the lines load and take their first stage.
-template <int P, int Q>
-__global__ void __launch_bounds__(XT, 4)
-    kern_x(float2* __restrict__ t2, const float* __restrict__ tf,
-           const float2* __restrict__ tab, int B, int n, int L,
-           long long rows_tf) {
+// The z forward over pencil bundles: grid (x-bundles, slabs, batch).
+template <int P, int Q, bool kMaps>
+__global__ void __launch_bounds__(NT, 2)
+    kern_fwd(const float2* __restrict__ in, const float2* __restrict__ maps,
+             const float2* __restrict__ tab, float2* __restrict__ out, int cc,
+             int n, int ncols, long long in_b, long long map_b,
+             long long out_b, long long in_o, long long out_o,
+             long long in_row, long long out_row) {
   extern __shared__ __align__(16) float2 sm[];
+  const int x0 = blockIdx.x * WC, ncol = min(WC, ncols - x0);
+  const long long o = blockIdx.y, vol = blockIdx.z;
+  fwd_bundle<P, Q, kMaps>(
+      in + (vol / cc) * in_b + o * in_o + x0,
+      kMaps ? maps + (vol % cc) * map_b + o * in_o + x0 : nullptr,
+      out + vol * out_b + o * out_o + x0, tab, sm, n, ncol, in_row, out_row);
+}
+
+// The z inverse with crop over pencil bundles: grid (x-bundles, slabs,
+// output volumes); with kMaps the block sums the cc coils of its output
+// volume blockIdx.z.
+template <int P, int Q, bool kMaps>
+__global__ void __launch_bounds__(NT, 2)
+    kern_inv(const float2* __restrict__ in, const float2* __restrict__ maps,
+             const float2* __restrict__ tab, float2* __restrict__ out, int cc,
+             int n, int ncols, long long in_b, long long map_b,
+             long long out_b, long long in_o, long long out_o,
+             long long in_row, long long out_row) {
+  extern __shared__ __align__(16) float2 sm[];
+  const int x0 = blockIdx.x * WC, ncol = min(WC, ncols - x0);
+  const long long o = blockIdx.y, vol = blockIdx.z;
+  inv_bundle<P, Q, kMaps, false>(
+      in + vol * cc * in_b + o * in_o + x0,
+      kMaps ? maps + o * out_o + x0 : nullptr,
+      out + vol * out_b + o * out_o + x0, tab, sm, cc, n, ncol, in_b, map_b,
+      in_row, out_row);
+}
+
+// The x round trip on L whole lines of one plane's y-spectrum in device
+// memory, in place: forward x (n -> 2n), times the spectrum rows trow (2n
+// floats each), inverse x (2n -> n). The spectrum rows arrive in shared
+// memory by cp.async while the lines load and take their first stage; the
+// lines, written by other blocks of this kernel, load through L2.
+template <int P, int Q>
+__device__ __forceinline__ void x_lines(float2* lines, const float* trow,
+                                        const float2* w, float2* sm, int n,
+                                        int L) {
   const int tld = 2 * n + 4;  // padded spectrum rows, 16-byte aligned
   float* ts = reinterpret_cast<float*>(sm);
-  float2* w = sm + L * tld / 2;
   const int ld = n + 1;  // odd line stride: conflict-free column access
-  const Buf s{w + 2 * n, L * ld, 1, ld, L};
+  const Buf s{sm + L * tld / 2, L * ld, 1, ld, L};
   const int q = n / P;
-  const long long rb = blockIdx.x / B, vol = blockIdx.x % B;
-  const long long row0 = rb * L;
-  float2* lines = t2 + (vol * rows_tf + row0) * n;
-  const float* trow = tf + row0 * 2 * n;
-  for (int ch = threadIdx.x; ch < L * n / 2; ch += XT) {
+  for (int ch = threadIdx.x; ch < L * n / 2; ch += blockDim.x) {
     const int l = ch / (n / 2), j = 4 * (ch % (n / 2));
     cp_async16(ts + l * tld + j, trow + (long long)l * 2 * n + j);
   }
   cp_async_commit();
-  load_table(w, tab, n);
-  __syncthreads();
   // first stage straight from the lines: run index fastest, so each load
   // instruction reads whole 128-byte segments
   stride_fwd_in<P, Q, false>(
       q, L, w, 2 * n,
-      [&](int b, int j, int c) { return lines[c * n + q * j + b]; },
+      [&](int b, int j, int c) { return __ldcg(lines + c * n + q * j + b); },
       [&](int h, int b, int k, int c, float2 v) {
         s.p[h * s.bs + c * ld + q * k + b] = v;
       });
@@ -496,6 +541,120 @@ __global__ void __launch_bounds__(XT, 4)
     const int b = it % q, c = it / q;
     inv_out_run<P, Q>(s, q, b, c, w, 2 * n, 0.5f / n,
                       [&](int, int x, float2 v) { lines[c * n + x] = v; });
+  }
+}
+
+// Waits until *c >= target: one thread polls with acquire loads, then the
+// block goes on. A wait that never ends traps (a kernel error, not a hang).
+__device__ __forceinline__ void wait_count(const int* c, int target) {
+  if (threadIdx.x == 0) {
+    unsigned spins = 0;
+    for (;;) {
+      int v;
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(c)
+                   : "memory");
+      if (v >= target) break;
+      __nanosleep(128);
+      if (++spins > (1u << 24)) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// Publishes the block's global writes, then counts one task done in *c.
+__device__ __forceinline__ void count_done(int* c) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(c, 1);
+}
+
+// Plane ring and task order: plane p (z-frequency p / B of volume p % B)
+// takes its y forward in step p, its x round trip in step p + DX and its y
+// inverse in step p + DI, its y-spectrum living in ring slot p % RING.
+constexpr int DX = 8, DI = 16, RING = 32;
+
+// The plane pass, in place on t1 (B, 2n1, n2, n3): for each z-frequency
+// plane the y forward into a ring slot, the x forward, the spectrum row
+// and the x inverse in the slot, and the y inverse with crop back into
+// t1. A persistent grid walks a fixed task list, each block taking the
+// next task when it is free; a task waits for the counts of the tasks it
+// needs, which come before it in the list and are taken by running
+// blocks, so every wait ends. cnt: three counts per plane (y forward
+// bundles, x batches, y inverse bundles) and the list's next task, zero
+// at launch. L: lines per x batch.
+template <int P2, int Q2, int P3, int Q3>
+__global__ void __launch_bounds__(NT, 2)
+    kern_x(float2* __restrict__ t1, const float* __restrict__ tf,
+           const float2* __restrict__ tab_y, const float2* __restrict__ tab_x,
+           float2* __restrict__ ring, int* __restrict__ cnt, int B, int n1,
+           int n2, int n3, int L) {
+  extern __shared__ __align__(16) float2 sm[];
+  // the x table for the whole run, then a task's space: a pencil task's
+  // table and buffers, or an x task's spectrum rows and lines
+  float2* wx = sm;
+  float2* tsm = wx + 2 * n3;
+  load_table(wx, tab_x, n3);
+  const int nbx = (n3 + WC - 1) / WC, nxl = 2 * n2 / L, tps = 2 * nbx + nxl;
+  const int nplanes = 2 * n1 * B;
+  const long long psize = (long long)n2 * n3, slot = 2 * psize;
+  int* fwd_done = cnt;
+  int* x_done = cnt + nplanes;
+  int* inv_done = cnt + 2 * nplanes;
+  int* queue = cnt + 3 * nplanes;  // the next task to hand out
+  // tasks in list order to whichever block is free: a block takes its
+  // next task's number while it runs the current one
+  __shared__ int taken[2];
+  if (threadIdx.x == 0) taken[0] = atomicAdd(queue, 1);
+  __syncthreads();
+  const int tasks = (nplanes + DI) * tps;
+  for (int it = 0;; ++it) {
+    const int t = taken[it & 1];
+    if (t >= tasks) break;
+    int next = 0;  // the next task's number, used only at the end
+    if (threadIdx.x == 0) next = atomicAdd(queue, 1);
+    const int step = t / tps, j = t - step * tps;
+    if (j < nbx && step < nplanes) {  // y forward of plane step, bundle j
+      const int p = step;
+      const int r = p / B, x0 = j * WC;
+      if (p >= RING) wait_count(inv_done + p - RING, nbx);
+      fwd_bundle<P2, Q2, false>(
+          t1 + ((long long)(p - r * B) * 2 * n1 + r) * psize + x0, nullptr,
+          ring + (p % RING) * slot + x0, tab_y, tsm, n2, min(WC, n3 - x0),
+          n3, n3);
+      count_done(fwd_done + p);
+    } else if (j >= nbx && j < nbx + nxl && step >= DX &&
+               step - DX < nplanes) {  // x round trip of plane step - DX
+      const int p = step - DX, row0 = (j - nbx) * L;
+      wait_count(fwd_done + p, nbx);
+      x_lines<P3, Q3>(ring + (p % RING) * slot + (long long)row0 * n3,
+                      tf + (long long)(p / B) * 4 * psize +
+                          (long long)row0 * 2 * n3,
+                      wx, tsm, n3, L);
+      count_done(x_done + p);
+    } else if (j >= nbx + nxl && step >= DI) {  // y inverse of step - DI
+      const int p = step - DI, x0 = (j - nbx - nxl) * WC;
+      wait_count(x_done + p, nxl);
+      const int r = p / B;
+      inv_bundle<P2, Q2, false, true>(
+          ring + (p % RING) * slot + x0, nullptr,
+          t1 + ((long long)(p - r * B) * 2 * n1 + r) * psize + x0, tab_y,
+          tsm, 1, n2, min(WC, n3 - x0), 0, 0, n3, n3);
+      // the slot's lines this task read are dead: where each row of the
+      // bundle is one whole 128-byte line, drop them from L2 without
+      // writing them back
+      if (n3 % WC == 0) {
+        const float2* col = ring + (p % RING) * slot + x0;
+        for (int i = threadIdx.x; i < 2 * n2; i += NT)
+          asm volatile("discard.global.L2 [%0], 128;" ::"l"(
+                           col + (long long)i * n3)
+                       : "memory");
+      }
+      count_done(inv_done + p);
+    }
+    if (threadIdx.x == 0) taken[(it + 1) & 1] = next;
+    __syncthreads();  // the next task's number is in
   }
 }
 
@@ -545,25 +704,62 @@ cudaError_t pencil_inv(const Pencil& a, cudaStream_t st) {
                 : launch_pencil(kern_inv<P, Q, false>, a, st);
 }
 
-struct XPass {
-  float2* t2;
+struct Plane {
+  float2* t1;
   const float* tf;
-  const float2* tab;
-  int B, n, L;
-  long long rows_tf;
+  const float2* tab_y;
+  const float2* tab_x;
+  float2* ring;
+  int* cnt;
+  int B, n1, n2, n3, p2, p3;
 };
 
-template <int P, int Q>
-cudaError_t xpass(const XPass& a, cudaStream_t st) {
-  const size_t smem = (size_t)a.L * (2 * a.n + 4) * 4 +
-                      (size_t)(2 * a.n + 2 * a.L * (a.n + 1)) * 8;
+// Lines per x task of the plane kernel (2 n2 is a multiple of 16).
+constexpr int XL = 16;
+
+// Shared memory of the plane kernel: the x tables, then the larger of a
+// pencil task's (the table and both halves of a bundle) and an x task's
+// (XL spectrum rows and both halves of XL lines).
+size_t plane_smem(const Plane& a) {
+  const size_t x = (size_t)XL * (2 * a.n3 + 4) * 4 +
+                   (size_t)2 * XL * (a.n3 + 1) * 8;
+  return (size_t)2 * a.n3 * 8 + std::max(pencil_smem(a.n2), x);
+}
+
+template <int P2, int Q2, int P3, int Q3>
+cudaError_t plane_pass(const Plane& a, cudaStream_t st) {
+  auto kern = kern_x<P2, Q2, P3, Q3>;
+  const int L = XL;
+  const size_t smem = plane_smem(a);
   cudaError_t e = cudaFuncSetAttribute(
-      kern_x<P, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = a.rows_tf / a.L * a.B;
-  kern_x<P, Q><<<(unsigned)blocks, XT, smem, st>>>(a.t2, a.tf, a.tab, a.B,
-                                                   a.n, a.L, a.rows_tf);
-  return cudaSuccess;
+  // a persistent grid of the blocks that are resident at once
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int nplanes = 2 * a.n1 * a.B;
+  e = cudaMemsetAsync(a.cnt, 0, (size_t)(3 * nplanes + 1) * sizeof(int), st);
+  if (e != cudaSuccess) return e;
+  // cooperative: every block is resident at once, or the launch fails
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sms * per_sm);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, a.t1, a.tf, a.tab_y, a.tab_x, a.ring,
+                            a.cnt, a.B, a.n1, a.n2, a.n3, L);
 }
 
 // The factor plans the kernels are instantiated for: p = 16 when 16 | n,
@@ -578,6 +774,25 @@ PassFn<A> pick(int n, int p, PassFn<A> f16_16, PassFn<A> f16_8,
   const int q = n / p;
   if (p == 16) return q == 16 ? f16_16 : q == 8 ? f16_8 : f16_0;
   if (p == 8 && q <= MAXQ) return f8_0;
+  return nullptr;
+}
+
+// the plane kernel's x plan, for its y plan (P2, Q2)
+template <int P2, int Q2>
+PassFn<Plane> plane_x(int n3, int p3) {
+  return pick<Plane>(n3, p3, plane_pass<P2, Q2, 16, 16>,
+                     plane_pass<P2, Q2, 16, 8>, plane_pass<P2, Q2, 16, 0>,
+                     plane_pass<P2, Q2, 8, 0>);
+}
+
+PassFn<Plane> pick_plane(const Plane& a) {
+  if (a.n2 < 8 || a.n2 > 256 || a.n2 % a.p2) return nullptr;
+  const int q2 = a.n2 / a.p2;
+  if (a.p2 == 16)
+    return q2 == 16  ? plane_x<16, 16>(a.n3, a.p3)
+           : q2 == 8 ? plane_x<16, 8>(a.n3, a.p3)
+                     : plane_x<16, 0>(a.n3, a.p3);
+  if (a.p2 == 8 && q2 <= MAXQ) return plane_x<8, 0>(a.n3, a.p3);
   return nullptr;
 }
 
@@ -616,38 +831,24 @@ int indigo_toeplitz_fz(const void* v, const void* maps, const void* tab,
   return run_fwd(a, p, stream);
 }
 
-// y forward: t1 (B, 2n1, n2, n3) -> t2 (B, 2n1, 2n2, n3)
-int indigo_toeplitz_fy(const void* t1, const void* tab, int p, void* t2,
-                       int B, int n1, int n2, int n3, void* stream) {
-  const long long P2 = (long long)n2 * n3;
-  const Pencil a{(const float2*)t1, nullptr, (const float2*)tab,
-                 (float2*)t2, 1, n2, n3, 2 * n1, B, 2LL * n1 * P2, 0,
-                 4LL * n1 * P2, P2, 2 * P2, n3, n3};
-  return run_fwd(a, p, stream);
-}
-
-// x: forward, spectrum multiply, inverse, in place on t2 (B, 2n1, 2n2, n3)
-int indigo_toeplitz_x(void* t2, const void* tf, const void* tab, int p,
-                      int B, int n1, int n2, int n3, void* stream) {
-  int L = 8;
-  while (L < 256 && 2 * L * n3 <= 2048) L *= 2;
-  const XPass a{(float2*)t2, (const float*)tf, (const float2*)tab, B, n3, L,
-                4LL * n1 * n2};
-  auto f = pick<XPass>(n3, p, xpass<16, 16>, xpass<16, 8>, xpass<16, 0>,
-                       xpass<8, 0>);
+// the plane pass: y forward, x forward, spectrum `tf` (2n1, 2n2, 2n3),
+// x inverse, y inverse, in place on every plane of t1 (B, 2n1, n2, n3).
+// ring: RING planes' y-spectra, (RING, 2n2, n3); cnt: 3 * 2n1 * B + 1
+// ints, zeroed here on the stream.
+int indigo_toeplitz_plane(void* t1, const void* tf, const void* tab_y,
+                          int py, const void* tab_x, int px, void* ring,
+                          void* cnt, int B, int n1, int n2, int n3,
+                          void* stream) {
+  const Plane a{(float2*)t1,     (const float*)tf, (const float2*)tab_y,
+                (const float2*)tab_x, (float2*)ring,    (int*)cnt,
+                B,              n1,               n2,
+                n3,             py,               px};
+  auto f = pick_plane(a);
   if (!f) return finish(cudaErrorInvalidValue);
   return finish(f(a, (cudaStream_t)stream));
 }
 
-// y inverse with crop: t2 (B, 2n1, 2n2, n3) -> t1 (B, 2n1, n2, n3)
-int indigo_toeplitz_iy(const void* t2, const void* tab, int p, void* t1,
-                       int B, int n1, int n2, int n3, void* stream) {
-  const long long P2 = (long long)n2 * n3;
-  const Pencil a{(const float2*)t2, nullptr, (const float2*)tab,
-                 (float2*)t1, 1, n2, n3, 2 * n1, B, 4LL * n1 * P2, 0,
-                 2LL * n1 * P2, 2 * P2, P2, n3, n3};
-  return run_inv(a, p, stream);
-}
+int indigo_toeplitz_ring_planes() { return RING; }
 
 // z inverse with crop [and conj-map coil sum]: t1 (S cc, 2n1, n2, n3) ->
 // out (S, n1, n2, n3)

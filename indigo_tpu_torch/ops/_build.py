@@ -111,15 +111,15 @@ def load_library():
 def _declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.indigo_toeplitz_fz.argtypes = [P, P, P, I, P, I, I, I, I, I, P]
-    lib.indigo_toeplitz_fy.argtypes = [P, P, I, P, I, I, I, I, P]
-    lib.indigo_toeplitz_x.argtypes = [P, P, P, I, I, I, I, I, P]
-    lib.indigo_toeplitz_iy.argtypes = [P, P, I, P, I, I, I, I, P]
+    lib.indigo_toeplitz_plane.argtypes = [P, P, P, I, P, I, P, P, I, I, I, I,
+                                          P]
+    lib.indigo_toeplitz_ring_planes.argtypes = []
     lib.indigo_toeplitz_iz.argtypes = [P, P, P, I, P, I, I, I, I, I, P]
     lib.indigo_jag_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
     lib.indigo_ell_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
-    for fn in (lib.indigo_toeplitz_fz, lib.indigo_toeplitz_fy,
-               lib.indigo_toeplitz_x, lib.indigo_toeplitz_iy,
-               lib.indigo_toeplitz_iz, lib.indigo_jag_spmm,
+    for fn in (lib.indigo_toeplitz_fz, lib.indigo_toeplitz_plane,
+               lib.indigo_toeplitz_iz, lib.indigo_toeplitz_ring_planes,
+               lib.indigo_jag_spmm,
                lib.indigo_ell_spmm):
         fn.restype = I
     lib.indigo_error_string.argtypes = [I]

@@ -8,12 +8,15 @@ Counterpart of ``indigo_tpu/ops/dft_pallas.py`` (``sense_normal_pallas``,
 
 ``sense_normal_cuda`` (K1) and ``toeplitz_apply_cuda`` (K2) launch the
 hand-written kernels of ``csrc/sense_normal.cu`` on the current CUDA stream
-— five axis passes each (z, y, x, y, z; ``LAUNCHES_PER_CALL``), K2 being
-K1's family with the coil fusion turned off. Each pass is a two-factor FFT
-in shared memory whose factors and twiddle table come from
-:func:`fft_factors` and :func:`fft_table`; :func:`four_step` applies the
-same transform in torch, in the kernels' index order, for the CPU tests.
-On CPU tensors they run ``sense_normal_reference`` and
+— three passes each (``LAUNCHES_PER_CALL``): the z forward, the plane pass
+(y forward, x round trip with the spectrum, y inverse, for each z-frequency
+plane, its y-spectrum held in a ring of planes that stays in L2) and the z
+inverse, K2 being K1's family with the coil fusion turned off. Every
+transform is a two-factor FFT in shared memory whose factors and twiddle
+table come from :func:`fft_factors` and :func:`fft_table`;
+:func:`four_step` applies the same transform in torch, in the kernels'
+index order, and :func:`plane_pass` the plane pass's decomposition, for
+the CPU tests. On CPU tensors they run ``sense_normal_reference`` and
 ``toeplitz_apply_reference``, the plain torch versions, which are also what
 the kernels are compared with on the card. The kernels are built on first
 use (``ops/_build.py``), never at import.
@@ -47,11 +50,11 @@ from .dft_fft import block_spectrum, toeplitz_apply_block
 __all__ = ["kernel_spectrum", "supported", "sense_normal_reference",
            "sense_normal_cuda", "toeplitz_apply_reference",
            "toeplitz_apply_cuda", "fft_factors", "fft_table",
-           "fft_positions", "four_step", "LAUNCHES_PER_CALL",
+           "fft_positions", "four_step", "plane_pass", "LAUNCHES_PER_CALL",
            "uses_sigma_basis", "solver_sigma_axes", "to_sigma_basis",
            "from_sigma_basis"]
 
-LAUNCHES_PER_CALL = 5  # kernel launches per sense_normal_cuda / K2 call
+LAUNCHES_PER_CALL = 3  # kernel launches per sense_normal_cuda / K2 call
 
 
 def kernel_spectrum(Tf: np.ndarray) -> np.ndarray:
@@ -173,9 +176,28 @@ def fft_positions(n: int) -> np.ndarray:
     return q * (k % p) + k // p
 
 
-def four_step(x, inverse=False):
+def _factor_mats(n, inverse=False, exact=False):
+    """(w, Fp, Fq, tw) of an n-point axis in complex128: the table W_2n^k
+    (the kernels' f32 :func:`fft_table`, or float64 when ``exact``),
+    W_p^{jk}, W_q^{jk} and W_n^{ab}; conjugated for the inverse."""
+    p, q = fft_factors(n)
+    if exact:
+        w = torch.from_numpy(np.exp(-1j * np.pi * np.arange(2 * n) / n))
+    else:
+        w = torch.from_numpy(fft_table(n)).to(torch.complex128)
+    if inverse:
+        w = w.conj()
+    ip, iq = torch.arange(p), torch.arange(q)
+    Fp = w[(ip[:, None] * ip[None, :]) % p * (2 * q)]      # W_p^{jk}
+    Fq = w[(iq[:, None] * iq[None, :]) % q * (2 * p)]      # W_q^{jk}
+    tw = w[2 * ip[:, None] * iq[None, :]]                  # W_n^{ab}
+    return w, Fp, Fq, tw
+
+
+def four_step(x, inverse=False, exact=False):
     """The kernels' n-point transform along the last axis, with their
-    factors and f32 table, in their index order (complex128 arithmetic).
+    factors and f32 table (float64 twiddles when ``exact``), in their index
+    order (complex128 arithmetic).
 
     Forward: natural order in, :func:`fft_positions` order out. Inverse
     (unnormalised, conjugate table): that order in, natural order out.
@@ -184,13 +206,7 @@ def four_step(x, inverse=False):
     steps in the other order."""
     n = int(x.shape[-1])
     p, q = fft_factors(n)
-    w = torch.from_numpy(fft_table(n)).to(torch.complex128)
-    if inverse:
-        w = w.conj()
-    ip, iq = torch.arange(p), torch.arange(q)
-    Fp = w[(ip[:, None] * ip[None, :]) % p * (2 * q)]      # W_p^{jk}
-    Fq = w[(iq[:, None] * iq[None, :]) % q * (2 * p)]      # W_q^{jk}
-    tw = w[2 * ip[:, None] * iq[None, :]]                  # W_n^{ab}
+    _, Fp, Fq, tw = _factor_mats(n, inverse, exact)
     X = x.to(torch.complex128).reshape(x.shape[:-1] + (p, q))
     if not inverse:
         Y = torch.einsum("...jb,jk->...kb", X, Fp) * tw    # row q k1 + b
@@ -199,6 +215,62 @@ def four_step(x, inverse=False):
         Y = torch.einsum("...aj,jk->...ak", X, Fq) * tw    # row q a + m1
         Z = torch.einsum("...am,ak->...km", Y, Fp)         # row q m2 + m1
     return Z.reshape(x.shape)
+
+
+def _round_trip(x, T, exact=False):
+    """The zero-aware doubled round trip along the last axis, as the
+    kernels run it: x (..., n), T (..., 2n) real in block layout ->
+    (IF(T_even F x) + conj(t) IF(T_odd F(t x))) / 2n, through
+    :func:`four_step` in its index order."""
+    n = int(x.shape[-1])
+    w, _, _, _ = _factor_mats(n, exact=exact)
+    t = w[:n]
+    pos = torch.from_numpy(fft_positions(n))
+    out = 0
+    for h in (0, 1):
+        X = four_step(x * t if h else x, exact=exact)
+        Y = torch.empty_like(X)
+        Y[..., pos] = X[..., pos] * T[..., h * n:(h + 1) * n]
+        y = four_step(Y, inverse=True, exact=exact)
+        out = out + (y * t.conj() if h else y)
+    return out * (0.5 / n)
+
+
+def plane_pass(t1, Tf, exact=False):
+    """The plane pass (``kern_x`` of ``csrc/sense_normal.cu``) in torch,
+    complex128, in the kernel's index orders. t1 (B, 2n1, n2, n3): the
+    volumes after the z forward; Tf (2n1, 2n2, 2n3) real in block layout.
+    Returns each plane's y forward, x round trip with its spectrum rows and
+    y inverse with crop, which the kernel writes back over t1.
+
+    Per y-half h (the odd one times t): the p-point stage along the
+    stride-q runs b (row q j + b), times W_n^{ab}, gives line (h, a, b);
+    the q-point stage over b gives line (h, a, k), y-frequency a + p k; the
+    line takes the x round trip with spectrum row h n2 + a + p k; the
+    inverse q-point stage over k, times W_n^{-ab}, and the inverse p-point
+    stage over a give row b + q m; the halves add up as
+    (e + conj(t) o) / 2 n2. The kernel runs both y stages of a 16-column
+    bundle in one block and the x round trip on 16 lines at a time; the
+    sums are these. ``exact``: float64 twiddles instead of the kernels' f32
+    tables."""
+    B, Z, n2, n3 = (int(s) for s in t1.shape)
+    p, q = fft_factors(n2)
+    w, Fp, Fq, tw = _factor_mats(n2, exact=exact)
+    _, iFp, iFq, itw = _factor_mats(n2, True, exact)
+    t = w[:n2].reshape(p, q, 1)
+    x = t1.to(torch.complex128).reshape(B, Z, p, q, n3)    # row q j + b
+    # spectrum row h n2 + a + p k of line (h, a, k)
+    T = Tf.to(torch.float64).reshape(Z, 2, q, p, 2 * n3).transpose(2, 3)
+    out = 0
+    for h in (0, 1):
+        xh = x * t if h else x
+        Y = torch.einsum("...jbx,ja->...abx", xh, Fp) * tw[..., None]
+        L = torch.einsum("...abx,bk->...akx", Y, Fq)       # line (h, a, k)
+        L = _round_trip(L, T[:, h], exact)
+        U = torch.einsum("...akx,km->...amx", L, iFq) * itw[..., None]
+        V = torch.einsum("...amx,an->...nmx", U, iFp)       # row q n + m
+        out = out + (V * t.conj() if h else V)
+    return (out * (0.5 / n2)).reshape(B, Z, n2, n3)
 
 
 @lru_cache(maxsize=16)
@@ -246,9 +318,11 @@ def _validate(name, Tf, v, maps=None):
 
 
 def _run(Tf, v, maps, events):
-    """Allocate t1, t2 and the output, then enqueue the five axis passes
-    (z, y, x, y, z) on the current stream: K1's instances with ``maps``,
-    K2's without. Each launch adds one to its wrapper's count."""
+    """Allocate t1, the plane pass's ring and task counts, and the output,
+    then enqueue the three passes (z forward, the plane pass, z inverse) on
+    the current stream: K1's instances with ``maps``, K2's without. Each
+    launch adds one to its wrapper's ``launches``, the plane pass one to its
+    ``plane_calls``."""
     from ._build import load_library
 
     lib = load_library()
@@ -261,10 +335,12 @@ def _run(Tf, v, maps, events):
     (tz, pz), (ty, py), (tx, px) = ((tab.data_ptr() + 8 * o, p)
                                     for o, p in axes)
     t1 = torch.empty((B, 2 * n1, n2, n3), dtype=torch.complex64, device=dev)
-    t2 = torch.empty((B, 2 * n1, 2 * n2, n3), dtype=torch.complex64,
-                     device=dev)
+    # the plane pass's ring of y-spectra and its per-plane task counts
+    ring = torch.empty((lib.indigo_toeplitz_ring_planes(), 2 * n2, n3),
+                       dtype=torch.complex64, device=dev)
+    cnt = torch.empty(3 * 2 * n1 * B + 1, dtype=torch.int32, device=dev)
     out = torch.empty_like(v)
-    p1, p2, pv, po = t1.data_ptr(), t2.data_ptr(), v.data_ptr(), out.data_ptr()
+    p1, pv, po = t1.data_ptr(), v.data_ptr(), out.data_ptr()
     pm = None if maps is None else maps.data_ptr()
 
     # the launchers size their grids for, and launch on, the current device
@@ -275,17 +351,16 @@ def _run(Tf, v, maps, events):
         launches = (
             ("z forward", lambda: lib.indigo_toeplitz_fz(
                 pv, pm, tz, pz, p1, S, cc, n1, n2, n3, st)),
-            ("y forward", lambda: lib.indigo_toeplitz_fy(
-                p1, ty, py, p2, B, n1, n2, n3, st)),
-            ("x", lambda: lib.indigo_toeplitz_x(
-                p2, Tf.data_ptr(), tx, px, B, n1, n2, n3, st)),
-            ("y inverse", lambda: lib.indigo_toeplitz_iy(
-                p2, ty, py, p1, B, n1, n2, n3, st)),
+            ("plane", lambda: lib.indigo_toeplitz_plane(
+                p1, Tf.data_ptr(), ty, py, tx, px, ring.data_ptr(),
+                cnt.data_ptr(), B, n1, n2, n3, st)),
             ("z inverse", lambda: lib.indigo_toeplitz_iz(
                 p1, pm, tz, pz, po, S, cc, n1, n2, n3, st)))
         for i, (what, launch) in enumerate(launches, 1):
             _check(lib, launch(), f"{fn.__name__} {what} pass")
             fn.launches += 1
+            if what == "plane":
+                fn.plane_calls += 1
             if events is not None:
                 events[i].record()
     return out
@@ -313,7 +388,7 @@ class _SenseNormalFn(torch.autograd.Function):
 
 
 def sense_normal_cuda(Tf, maps, v, events=None):
-    """Launch the CUDA Toeplitz SENSE normal op K1 (five kernels).
+    """Launch the CUDA Toeplitz SENSE normal op K1 (three kernels).
 
     Tf: (2n1, 2n2, 2n3) float32 (:func:`kernel_spectrum` layout); maps
     (nc, n1, n2, n3) and v (S, n1, n2, n3) complex64, contiguous, on one
@@ -324,6 +399,8 @@ def sense_normal_cuda(Tf, maps, v, events=None):
     grad raise.
     ``events``: optional ``LAUNCHES_PER_CALL + 1`` ``torch.cuda.Event``s
     recorded before the first kernel and after each, for per-kernel timing.
+    Counts: ``launches`` (kernels), ``plane_calls`` (calls that ran the
+    plane pass, every call the kernels take).
     """
     if v.device.type == "cpu":
         return sense_normal_reference(Tf, maps, v)
@@ -333,10 +410,11 @@ def sense_normal_cuda(Tf, maps, v, events=None):
 
 
 sense_normal_cuda.launches = 0
+sense_normal_cuda.plane_calls = 0
 
 
 def toeplitz_apply_cuda(Tf, u, events=None):
-    """Launch the CUDA Toeplitz round trip K2 (five kernels): the
+    """Launch the CUDA Toeplitz round trip K2 (three kernels): the
     counterpart of ``toeplitz_apply_pallas``.
 
     Tf: (2n1, 2n2, 2n3) float32 (:func:`kernel_spectrum` layout); u
@@ -344,7 +422,8 @@ def toeplitz_apply_cuda(Tf, u, events=None):
     (B, n1, n2, n3) complex64. CPU tensors run the plain version; anything
     else the kernels do not take raises (a non-contiguous u is never copied
     here). Gradients in u: as for :func:`sense_normal_cuda`, with K2.
-    ``events``: as for :func:`sense_normal_cuda`.
+    ``events``, ``launches``, ``plane_calls``: as for
+    :func:`sense_normal_cuda`.
     """
     if u.device.type == "cpu":
         return toeplitz_apply_reference(Tf, u)
@@ -354,3 +433,4 @@ def toeplitz_apply_cuda(Tf, u, events=None):
 
 
 toeplitz_apply_cuda.launches = 0
+toeplitz_apply_cuda.plane_calls = 0

@@ -11,7 +11,7 @@ keeps the reference's text and keys.
 The bytes and flop models here are the port's own and are the single source
 of the bounds ``chip_smoke.py`` prints: ``bound`` (the larger of bytes over
 the memory rate and flops over the f32 rate), ``pass_bytes`` and
-``toeplitz_bound`` for the five passes of kernels K1/K2
+``toeplitz_bound`` for the three passes of kernels K1/K2
 (``csrc/sense_normal.cu``), ``spmm_bound`` for K3/K4 (``csrc/block_spmm.cu``),
 ``toeplitz_cg_iter_bytes``/``_macs`` for one CG iteration on K1, and
 ``tile_adj_floor`` for the ``kb_scatter`` gridding adjoint.
@@ -80,13 +80,13 @@ def toeplitz_bound(shape, S, nc):
 
 
 def pass_bytes(shape, S, nc):
-    """Bytes each of the five passes (z, y, x, y, z) moves when it reads its
-    inputs once and writes its output once: v and maps -> t1 (2V per
-    volume) -> t2 (4V) -> t2 and the f32 spectrum -> t1 -> out."""
+    """Bytes each of the three passes (z forward, plane, z inverse) moves
+    when it reads its inputs once and writes its output once: v and maps
+    -> t1 (2V per volume) -> t1 and the f32 spectrum (8V floats) -> t1
+    -> out."""
     V = int(np.prod(shape))
     vols = S * max(nc, 1)
-    return [8 * V * (S + nc + 2 * vols), 8 * V * 6 * vols,
-            8 * V * 8 * vols + 32 * V, 8 * V * 6 * vols,
+    return [8 * V * (S + nc + 2 * vols), 8 * V * 4 * vols + 32 * V,
             8 * V * (2 * vols + nc + S)]
 
 
@@ -101,7 +101,7 @@ def toeplitz_cg_iter_bytes(img_shape, nc, layout, coil_chunk=None):
     """Minimum memory traffic (bytes) of ONE Toeplitz-SENSE CG iteration.
 
     ``layout="kernel"`` (the reference's ``"pallas"`` is a synonym): one
-    normal-op call of K1 per coil chunk, each the sum of its five passes'
+    normal-op call of K1 per coil chunk, each the sum of its three passes'
     ``pass_bytes`` (maps, image and spectrum read once per chunk), plus
     the CG vector updates (6 image-size passes: Ap read/write, x/r/p
     updates) and, with several chunks, their sum (read 2V, write V per

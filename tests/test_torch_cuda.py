@@ -8,7 +8,9 @@ without jax, where tests/conftest.py (which imports jax) must be skipped:
 Tolerance 1e-4 against the plain torch version: the kernels' FFT stages
 round in f32 in another order than the plain matmul DFT on cuBLAS. The
 Toeplitz shapes cover every factor plan of the kernels: 16 x 16 (256),
-16 x 8 (128), 16 x q direct (16, 48, ...) and 8 x q direct (8, 24, 40, 136).
+16 x 8 (128), 16 x q direct (16, 48, ...) and 8 x q direct (8, 24, 40, 136),
+on the z axis and on each axis of the plane pass (y, x); 256^3 is the main
+path's (K1 at 4 coils, K2 at B 8).
 """
 import numpy as np
 import pytest
@@ -42,13 +44,16 @@ def _inputs(rng, shape, S, nc, dev):
                                         ((24, 8, 136), 2, 1),
                                         ((24, 136, 40), 1, 3),
                                         ((8, 256, 16), 2, 2),
-                                        ((256, 16, 128), 1, 2)])
+                                        ((256, 16, 128), 1, 2),
+                                        ((256, 256, 256), 1, 4)])
 def test_kernel_matches_plain(cuda, shape, S, nc):
     T, m, x = _inputs(np.random.default_rng(1), shape, S, nc, cuda)
     before = sense_normal_cuda.launches
+    planes = sense_normal_cuda.plane_calls
     out = sense_normal_cuda(T, m, x)
     torch.cuda.synchronize()
     assert sense_normal_cuda.launches == before + LAUNCHES_PER_CALL
+    assert sense_normal_cuda.plane_calls == planes + 1
     assert rel_err(out, sense_normal_reference(T, m, x)) < 1e-4
 
 
@@ -92,16 +97,19 @@ def test_recon_kernel_path_matches_cpu_plain_path(cuda):
 @pytest.mark.parametrize("shape,B", [((8, 8, 8), 2), ((8, 16, 24), 3),
                                      ((16, 136, 8), 1), ((24, 8, 136), 2),
                                      ((24, 136, 40), 2), ((8, 256, 16), 3),
-                                     ((128, 16, 256), 2)])
+                                     ((128, 16, 256), 2),
+                                     ((256, 256, 256), 8)])
 def test_toeplitz_kernel_matches_plain(cuda, shape, B):
     from indigo_tpu_torch.ops.dft_cuda import (
         toeplitz_apply_cuda, toeplitz_apply_reference)
 
     T, _, u = _inputs(np.random.default_rng(7), shape, B, 1, cuda)
     before = toeplitz_apply_cuda.launches
+    planes = toeplitz_apply_cuda.plane_calls
     out = toeplitz_apply_cuda(T, u)
     torch.cuda.synchronize()
     assert toeplitz_apply_cuda.launches == before + LAUNCHES_PER_CALL
+    assert toeplitz_apply_cuda.plane_calls == planes + 1
     assert rel_err(out, toeplitz_apply_reference(T, u)) < 1e-4
 
 
@@ -152,7 +160,7 @@ def test_toeplitz_normal_on_cuda_runs_the_kernel(cuda):
 def test_toeplitz_cg_from_64bit_numpy_runs_k2(cuda):
     """The reference user's recipe: float64 / complex128 numpy and no
     device anywhere. The tree builds on the card with complex64 buffers,
-    cg runs K2 (5 launches per apply, maxiter + 1 applies) and equals the
+    cg runs K2 (3 launches per apply, maxiter + 1 applies) and equals the
     solve built from complex64 tensors on the card (1e-4)."""
     from indigo_tpu_torch import cg
     from indigo_tpu_torch.ops.dft_cuda import toeplitz_apply_cuda
@@ -685,21 +693,30 @@ def test_checkpoint_of_a_cuda_tensor_comes_back_on_cuda(cuda, tmp_path):
 
 # ---- gradients: each kernel's backward launches its adjoint kernel -------
 
-def _k1_k2_cases(cuda):
-    """(wrapper, operator tensors, plain version) of K1 and K2 at 16^3."""
+def _k1_k2_cases(cuda, shape=(16, 16, 16), S=2, nc=3):
+    """(wrapper, operator tensors, plain version) of K1 and K2, at 16^3
+    unless given."""
     from indigo_tpu_torch.ops.dft_cuda import (
         sense_normal_reference, toeplitz_apply_cuda, toeplitz_apply_reference)
 
-    T, m, x = _inputs(np.random.default_rng(15), (16, 16, 16), 2, 3, cuda)
+    T, m, x = _inputs(np.random.default_rng(15), shape, S, nc, cuda)
     return x, [("K1", sense_normal_cuda, (T, m), sense_normal_reference),
                ("K2", toeplitz_apply_cuda, (T,), toeplitz_apply_reference)]
 
 
 def test_k1_k2_gradient_is_one_more_launch_on_the_cotangent(cuda):
     """The gradient in the operand is bitwise the kernel on the cotangent
-    (both are Hermitian), one call (5 launches) per backward, no plain
+    (both are Hermitian), one call (3 launches) per backward, no plain
     call, and within 1e-4 of autograd through the plain version."""
-    x, cases = _k1_k2_cases(cuda)
+    _check_k1_k2_gradient(*_k1_k2_cases(cuda))
+
+
+def test_k1_k2_gradient_at_the_main_path_size(cuda):
+    """As above at 256^3: K1 at 4 coils, K2 on the one volume."""
+    _check_k1_k2_gradient(*_k1_k2_cases(cuda, (256, 256, 256), 1, 4))
+
+
+def _check_k1_k2_gradient(x, cases):
     g = torch.randn_like(x)
     for name, fn, ops, plain in cases:
         v = x.clone().requires_grad_()

@@ -7,6 +7,9 @@ of each axis (even = F x, odd = F(t x); inverse with crop
 (IF X_even + conj(t) IF X_odd) / 2n) must reproduce the reference's
 ``dft_pad2x_mats`` and ``torch.fft`` on every axis length the kernels meet,
 to 1e-6 (the table is rounded to f32, the arithmetic is complex128).
+``ops.dft_cuda.plane_pass`` runs the plane kernel's split of the y
+transform around the x round trip; with float64 twiddles it is the exact
+operator to 1e-10.
 """
 import numpy as np
 import pytest
@@ -14,7 +17,8 @@ import torch
 
 from indigo_tpu.ops.dft_fft import dft_pad2x_mats as ref_pad2x_mats
 from indigo_tpu_torch.ops.dft_cuda import (
-    fft_factors, fft_positions, fft_table, four_step)
+    fft_factors, fft_positions, fft_table, four_step, plane_pass)
+from indigo_tpu_torch.ops.dft_fft import block_perm, toeplitz_apply_block
 from indigo_tpu_torch.utils import rand64c, rel_err
 
 NS = [8, 16, 24, 40, 136, 248, 256]
@@ -107,3 +111,51 @@ def test_round_trip_matches_plain_toeplitz_apply():
     for ax in (1, 2, 3):
         U = crop2x(U.movedim(ax, -1)).movedim(-1, ax)
     assert rel_err(U, toeplitz_apply_reference(T, u)) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (24, 40, 32), (8, 256, 16),
+                                   (32, 64, 256)])
+def test_plane_pass_between_the_z_passes_is_the_round_trip(shape):
+    """z forward, the plane pass, z inverse: with float64 twiddles the
+    complex128 operator crop(IFFT(Tf FFT(pad_2x u))) to 1e-10; with the
+    kernels' f32 tables, ``toeplitz_apply_block`` (complex64) to 1e-5.
+    (24, 40, 32) takes the direct-sum q-point stages on y (q 5)."""
+    n1, n2, n3 = shape
+    rng = np.random.default_rng(n1 * n2 + n3)
+    Tf = torch.from_numpy(rng.standard_normal(tuple(2 * s for s in shape)))
+    u = torch.from_numpy(rand64c(2, *shape, rng=rng)).to(torch.complex128)
+    full = torch.fft.fft(u, n=2 * n1, dim=1)
+    t1 = torch.cat([full[:, 0::2], full[:, 1::2]], dim=1)
+
+    def z_crop(X):
+        inter = torch.empty((2, 2 * n1, n2, n3), dtype=torch.complex128)
+        inter[:, 0::2], inter[:, 1::2] = X[:, :n1], X[:, n1:]
+        return torch.fft.ifft(inter, dim=1)[:, :n1]
+
+    back = [torch.from_numpy(np.argsort(block_perm(2 * s))) for s in shape]
+    Tn = Tf[back[0]][:, back[1]][:, :, back[2]]
+    exact = torch.fft.ifftn(
+        Tn * torch.fft.fftn(u, s=tuple(2 * s for s in shape), dim=(1, 2, 3)),
+        dim=(1, 2, 3))[:, :n1, :n2, :n3]
+    assert rel_err(z_crop(plane_pass(t1, Tf, exact=True)), exact) < 1e-10
+    plain = toeplitz_apply_block(Tf.float(), u.to(torch.complex64))
+    assert rel_err(z_crop(plane_pass(t1, Tf)), plain) < 1e-5
+
+
+def test_three_passes_per_call_and_their_bytes():
+    """K1 and K2 launch three kernels a call (z forward, the plane pass, z
+    inverse) and count their plane-pass calls; the passes' bytes hold no
+    t2: the plane pass reads and writes t1 once (4 units per volume) and
+    reads the f32 spectrum (4 units)."""
+    from indigo_tpu_torch.ops.dft_cuda import (
+        LAUNCHES_PER_CALL, sense_normal_cuda, toeplitz_apply_cuda)
+    from indigo_tpu_torch.profiling import pass_bytes
+
+    assert LAUNCHES_PER_CALL == 3
+    for fn in (sense_normal_cuda, toeplitz_apply_cuda):
+        assert isinstance(fn.plane_calls, int) and fn.plane_calls >= 0
+    V, unit = 256 ** 3, 8 * 256 ** 3
+    assert pass_bytes((256,) * 3, 1, 4) == [unit * 13, unit * 16 + 4 * unit,
+                                            unit * 13]
+    assert pass_bytes((256,) * 3, 8, 0) == [unit * 24, unit * 32 + 32 * V,
+                                            unit * 24]

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.dft_cuda import kernel_spectrum, supported
+from ..ops.dft_cuda import kernel_serves
 from ..ops.dft_fft import block_spectrum
 from .. import tracing
 from ..parallel.recon import sense_normal_batched, batched_cg
@@ -87,10 +87,10 @@ class SenseRecon(nn.Module):
     normal-op call. device: where the payloads live and the solve runs;
     the card by default, as the reference runs on its accelerator (without
     one, building the pipeline raises where torch does; pass "cpu" to run
-    on the host). On CUDA, 3D volumes the kernel takes
-    (``ops.dft_cuda.supported``) run the normal op through the CUDA kernel
+    on the host). Where ``ops.dft_cuda.kernel_serves`` (a CUDA device, a
+    3D volume the kernel takes) the normal op runs the CUDA kernel
     (``layout == "kernel"``); everything else runs the plain torch pipeline
-    (``"block"``).
+    (``"block"``), on the same block-order spectrum.
     """
 
     def __init__(self, traj, maps, oversamp=1.25, width=4, lamda=None,
@@ -200,13 +200,10 @@ class SenseRecon(nn.Module):
             self._request = 0
             self.A = A
             self.plan = plan
-            if self.device.type == "cuda" and supported(self.img_shape):
-                self.layout = "kernel"
-                Tk = kernel_spectrum(Tf)
-            else:
-                self.layout = "block"
-                Tk = block_spectrum(Tf)
-            self.register_buffer("Tf", torch.from_numpy(Tk))
+            self.layout = ("kernel" if kernel_serves(self.img_shape,
+                                                     self.device)
+                           else "block")
+            self.register_buffer("Tf", torch.from_numpy(block_spectrum(Tf)))
             self.register_buffer("maps", torch.from_numpy(maps))
             self.register_buffer("wd", torch.from_numpy(w_sorted))
             perm = np.asarray(plan.perm, np.int64)

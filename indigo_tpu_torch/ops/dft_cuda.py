@@ -47,7 +47,8 @@ from torch.autograd.function import once_differentiable
 from . import _refuse_operator_grad
 from .dft_fft import block_spectrum, toeplitz_apply_block
 
-__all__ = ["kernel_spectrum", "supported", "sense_normal_reference",
+__all__ = ["kernel_spectrum", "supported", "kernel_serves",
+           "sense_normal_reference",
            "sense_normal_cuda", "toeplitz_apply_reference",
            "toeplitz_apply_cuda", "fft_factors", "fft_table",
            "fft_positions", "four_step", "plane_pass", "LAUNCHES_PER_CALL",
@@ -73,6 +74,12 @@ def supported(shape) -> bool:
     if len(shape) != 3:
         return False
     return all(s % 8 == 0 and 8 <= s <= 256 for s in shape)
+
+
+def kernel_serves(shape, device) -> bool:
+    """True when K1/K2 serve a volume of this shape on ``device``: a CUDA
+    device and a shape that :func:`supported` takes."""
+    return torch.device(device).type == "cuda" and supported(shape)
 
 
 def uses_sigma_basis(shape) -> bool:

@@ -24,6 +24,7 @@ import math
 import torch
 
 from .. import tracing
+from ..solvers import _cg_steps, _rowdot, _shift
 from ..utils import as_tensor, common_device
 from .collectives import all_to_all, psum
 from .mesh import Placement
@@ -149,8 +150,8 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
 
     ``tol`` > 0 freezes a slice once its relative residual drops below tol
     (its state stops changing; the loop still runs ``iters`` steps and the
-    count reports the steps actually taken). The loop makes no host sync:
-    every decision is a ``torch.where`` on the device.
+    count reports the steps actually taken). The loop, ``solvers.cg``'s
+    too, makes no host sync: every decision is a ``torch.where``.
 
     ``precond``: callable z = M^{-1}(r), positive definite. ``psum_axis``:
     when the feature dimension itself is sharded over ``mesh`` (volume
@@ -163,61 +164,16 @@ def batched_cg(matvec, rhs, lamda=0.0, iters=20, psum_axis=None, tol=0.0,
         raise ValueError("batched_cg: psum_axis names axes of a mesh; pass "
                          "mesh= along with it")
 
-    def mv(v):
-        out = matvec(v)
-        if not (isinstance(lamda, (int, float)) and lamda == 0):
-            out = out + lamda * v
-        return out
+    def dot(a, b):
+        d = _rowdot(a, b)
+        return d if psum_axis is None else psum(d, mesh, psum_axis)
 
-    applyM = precond if precond is not None else (lambda r: r)
-
-    def pdot(a, b):  # per-slice real inner product -> (S, 1)
-        d = torch.sum((a.conj() * b).real, dim=-1, keepdim=True)
-        if psum_axis is not None:
-            d = psum(d, mesh, psum_axis)
-        return d
-
-    track = tol > 0
-    S = rhs.shape[0]
-    x = torch.zeros_like(rhs)
-    r = rhs
-    p = applyM(r)
-    rz = pdot(r, p)
-    rs = pdot(r, r)
-    bnorm = torch.sqrt(rs)
-    bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
-    k = torch.zeros((S,), dtype=torch.int32, device=rhs.device)
-    done = (torch.sqrt(rs) <= tol * bnorm) if track else None
-    resids = []
-    for _ in range(iters):
-        with tracing.span("indigo.cg_iter"):
-            Ap = mv(p)
-            alpha = rz / torch.clamp(pdot(p, Ap), min=1e-30)
-            xn = x + alpha.to(x.dtype) * p
-            rn = r - alpha.to(r.dtype) * Ap
-            z = applyM(rn)
-            rzn = pdot(rn, z)
-            beta = rzn / torch.clamp(rz, min=1e-30)
-            pn = z + beta.to(p.dtype) * p
-            rsn = pdot(rn, rn)
-            if track:
-                keep = done
-                x = torch.where(keep, x, xn)
-                r = torch.where(keep, r, rn)
-                p = torch.where(keep, p, pn)
-                rz = torch.where(keep, rz, rzn)
-                rs = torch.where(keep, rs, rsn)
-                k = torch.where(keep[:, 0], k, k + 1)
-                done = done | (torch.sqrt(rsn) <= tol * bnorm)
-            else:
-                x, r, p, rz, rs = xn, rn, pn, rzn, rsn
-                k = k + 1
-            resids.append(torch.sqrt(rs[:, 0]))
-    resids = (torch.stack(resids) if resids
-              else torch.zeros((0, S), device=rhs.device))
+    x, k, norms = _cg_steps(_shift(matvec, lamda), torch.zeros_like(rhs),
+                            rhs, iters, tol=tol if tol > 0 else None,
+                            precond=precond, dot=dot)
     if return_iters:
-        return x, resids, k
-    return x, resids
+        return x, norms[1:], k
+    return x, norms[1:]
 
 
 def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
@@ -227,12 +183,11 @@ def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
 
     Tf (*2N) float32 raw spectrum (what ``toeplitz_kernel`` returns), maps
     (nc, *N) complex64, rhs (S, n) complex64: tensors or numpy arrays. The
-    spectrum is permuted once, before the loop: for CUDA tensors in a
-    volume the kernel takes (``ops.dft_cuda.supported``) into
-    ``kernel_spectrum`` order and the normal op runs K1
-    (``layout="kernel"``), otherwise into ``block_spectrum`` order on the
-    plain pipeline (``"block"``). Returns (xs (S, n), resids (iters, S))
-    tensors.
+    spectrum is permuted into block order once, before the loop; the
+    normal op runs K1 (``layout="kernel"``) where
+    ``ops.dft_cuda.kernel_serves`` (CUDA tensors, a volume the kernel
+    takes), otherwise the plain pipeline (``"block"``). Returns (xs (S, n),
+    resids (iters, S)) tensors.
 
     ``mesh=None``: everything on ``device``, by default the device of the
     tensors given, else the card (``utils.common_device``: an error where
@@ -244,7 +199,7 @@ def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
     the coil combine over 'coil'. ``coil_chunk`` is snapped to a divisor of
     the rank's own coil count. Every rank gets the global result.
     """
-    from ..ops.dft_cuda import supported
+    from ..ops.dft_cuda import kernel_serves
 
     if mesh is None:
         dev = common_device(Tf, maps, rhs, device=device)
@@ -256,8 +211,7 @@ def sense_batch_recon(Tf, maps, rhs, mesh=None, lamda=0.0, iters=20,
         rhs = Placement(mesh, ("slice",)).local(rhs, torch.complex64)
     Tb = _block_layout(as_tensor(Tf, dev, torch.float32)).contiguous()
     img_shape = tuple(maps.shape[1:])
-    layout = ("kernel" if dev.type == "cuda" and supported(img_shape)
-              else "block")
+    layout = "kernel" if kernel_serves(img_shape, dev) else "block"
 
     def mv(v):
         out = sense_normal_batched(Tb, maps, v, coil_chunk=coil_chunk,

@@ -1,6 +1,7 @@
 """batched_cg: the port vs the reference on one random SPD matvec, with
 the tol freeze, a Jacobi preconditioner and iteration counts. Tolerance
-1e-5 (f32; reductions sum in another order)."""
+1e-5 (f32; reductions sum in another order). solvers.cg against
+batched_cg: the one loop both run."""
 import numpy as np
 import pytest
 import torch
@@ -51,3 +52,36 @@ def test_batched_cg_solves(rng):
         np.complex128)).T
     assert rel_err(x, ref) < 1e-4
     assert resids.shape == (60, 3)
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+@pytest.mark.parametrize("use_pd", [False, True])
+def test_cg_and_batched_cg_run_one_loop(rng, tol, use_pd):
+    """solvers.cg on one vector and batched_cg on one row take the same
+    steps: the same iterates, counts and (relative x ||b||) residuals."""
+    from indigo_tpu_torch.solvers import cg
+    H, rhs, pd = _problem(rng)
+    Ht, b, pdt = (torch.from_numpy(a) for a in (H, rhs[0], pd))
+    x, info = cg(lambda v: Ht @ v, b, lamda=0.05, tol=tol, maxiter=12,
+                 history=True, precond=(lambda r: r * pdt) if use_pd
+                 else None)
+    xs, resids, k = batched_cg(lambda v: v @ Ht.T, b[None], lamda=0.05,
+                               iters=12, tol=tol, return_iters=True,
+                               precond=(lambda r: r * pdt[None]) if use_pd
+                               else None)
+    assert rel_err(x, xs[0].numpy()) < 1e-6
+    assert int(info["iters"]) == int(k[0])
+    assert int(k[0]) == 12 if tol == 0 else int(k[0]) < 12
+    bnorm = torch.linalg.vector_norm(b)
+    assert rel_err(info["resids"] * bnorm, resids[:, 0].numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_cg_of_zero_takes_no_step(tol):
+    from indigo_tpu_torch.solvers import cg
+    H = torch.eye(8, dtype=torch.complex64) * 2
+    x, info = cg(lambda v: H @ v, torch.zeros(8, dtype=torch.complex64),
+                 tol=tol, maxiter=5, history=True)
+    assert int(info["iters"]) == 0
+    assert not x.any()
+    assert float(info["resid"]) == 0.0

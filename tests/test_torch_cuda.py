@@ -189,6 +189,19 @@ def test_toeplitz_cg_from_64bit_numpy_runs_k2(cuda):
     assert rel_err(x, x32) < 1e-4
 
 
+@pytest.mark.parametrize("S", [1, 3])
+def test_cg_inner_products_on_the_card_match_the_host(cuda, S):
+    """The CG loop's per-row inner products: one vdot a row on the card,
+    the summed products on the host; equal to f32 rounding (1e-6)."""
+    from indigo_tpu_torch.solvers import _rowdot
+
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rand64c(S, 4096, rng=rng)) for _ in range(2))
+    got = _rowdot(a.to(cuda), b.to(cuda))
+    assert got.shape == (S, 1) and got.is_cuda
+    assert rel_err(got, _rowdot(a, b)) < 1e-6
+
+
 def test_card_tensor_never_runs_on_the_host(cuda):
     """A card tensor times an operator built on the host raises, and so do
     batch inputs on two devices: nothing moves the work to the CPU."""

@@ -28,6 +28,7 @@ N, NC, ITERS = 16, 2, 3
 REQUEST_SPANS = {"indigo.rhs": 1, "indigo.ingress": 1, "indigo.solve": 1,
                  "indigo.cg_iter": ITERS, "indigo.normal_op": ITERS,
                  "indigo.egress": 1}
+SLACK_NS = 50_000  # the profiler's clock conversion
 
 
 @pytest.fixture(scope="module")
@@ -144,9 +145,12 @@ def test_spans_are_host_events_of_the_profiler_on_its_clock(recon):
         mine = sorted(by_name(recs, name), key=lambda s: s.start_ns)
         theirs = sorted((e for e in ev if e.name() == name),
                         key=lambda e: e.start_ns())
+        # one clock: the span's stamps fall inside its profiler event,
+        # which opens before the start stamp and closes after the end
+        # stamp (a pre-emption between the two only widens the event)
         for s, e in zip(mine, theirs):
-            assert abs(s.start_ns - e.start_ns()) < 200_000, name
-            assert abs(s.end_ns - e.end_ns()) < 200_000, name
+            assert e.start_ns() - SLACK_NS <= s.start_ns, name
+            assert s.end_ns <= e.end_ns() + SLACK_NS, name
 
 
 def test_chrome_trace_carries_the_spans(recon, tmp_path):

@@ -16,6 +16,16 @@ raises and exits non-zero):
      three passes' ms (z forward, plane, z inverse), each pass's share of
      its bytes floor, the bound, and the calls that took the plane kernel
      (``plane_calls``, which must equal the calls).
+  2b. adjoint pad-DFT: pad_idft_cuda (csrc/pad_dft.cu, one pass per
+     axis) against pad_idft_reference (the adjoint matrices' einsum) on the
+     card at small 2D / 3D shapes and at the main path's 320^3 -> 256^3 with
+     8 coils (rel_err <= 1e-5, launches one per axis), and there the
+     kernel, plain and library times (torch.fft: ifftn, fftshift, crop and
+     sign, which the port's path never calls; plain, kernel, library,
+     kernel, plain), the bytes bound (pad_idft_bytes: the grid read and
+     the image written once), the passes' own floor (pad_idft_pass_bytes,
+     which counts the volumes between the passes too) and one call's
+     device time by kernel under torch.profiler.
   3. main path: SenseRecon at the serving-lane size (256^3, 8 coils, 4096 x
      256 kooshball = 1,048,576 samples per coil, oversamp 1.25, width 4,
      10 CG iterations, coil_chunk 4) on the GPU: 3 acquisitions of a noisy
@@ -330,7 +340,8 @@ def kernel_registers(ptxas_log):
         if m and name:
             # the digit is the mangled length prefix, which the namespace
             # tag of the file (..._block_spmm_cu_...) does not have
-            k = re.search(r"(?<=\d)(kern_fwd|kern_inv|kern_x|row_spmm)"
+            k = re.search(r"(?<=\d)(kern_fwd|kern_inv|kern_x|row_spmm|"
+                          r"kern_pad_idft)"
                           r"(I(?:L[ib]\d+E)+E)?", name)
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "") if k else []
             vals = [("true" if v == "1" else "false") if t == "b" else v
@@ -553,6 +564,97 @@ def phase_kernels():
     return worst, timing
 
 
+# (img, grid, K) of phase 2b; the last is the main path's rhs
+PAD_DFT_SHAPES = [((13, 31), (24, 40), 3), ((29, 51), (40, 64), 8),
+                  ((12, 16, 256), (16, 24, 320), 8),
+                  ((13, 301), (16, 512), 2),
+                  ((25, 7, 200), (32, 16, 256), 1),
+                  ((256, 256, 256), (320, 320, 320), 8)]
+
+
+def pad_idft_library(x, img):
+    """The adjoint pad-DFT by torch.fft (cuFFT), the yardstick only: per
+    axis out[j] = (-1)^(j+o+g/2) ifft(x)[(j + o + g/2) mod g], unnormalised."""
+    import torch
+    axes = tuple(range(1, x.dim()))
+    y = torch.fft.fftshift(torch.fft.ifftn(x, dim=axes, norm="forward"),
+                           dim=axes)
+    sign = 1.0
+    for d, (n, g) in enumerate(zip(img, x.shape[1:])):
+        o = (g - n) // 2
+        y = y.narrow(d + 1, o, n)
+        s = (-1.0) ** (np.arange(n) + o + g // 2)
+        sign = np.multiply.outer(sign, s)
+    return y * torch.from_numpy(sign.astype(np.float32)).to(x.device)
+
+
+def phase_pad_dft():
+    """Phase 2b: returns (worst max |err|, the main-path timing, the
+    phase's kernel launches)."""
+    import torch
+    from indigo_tpu_torch.ops.pad_dft_cuda import (
+        pad_idft_bytes, pad_idft_cuda, pad_idft_pass_bytes,
+        pad_idft_reference)
+    from indigo_tpu_torch.utils import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst, timing, at_start = 0.0, None, pad_idft_cuda.launches
+    for img, grid, K in PAD_DFT_SHAPES:
+        t0 = time.time()
+        x = torch.randn((K,) + grid, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        before = pad_idft_cuda.launches
+        out = pad_idft_cuda(x, img)
+        ref = pad_idft_reference(x, img)
+        torch.cuda.synchronize()
+        if pad_idft_cuda.launches - before != len(img):
+            raise AssertionError(f"pad_idft_cuda at {grid}: "
+                                 f"{pad_idft_cuda.launches - before} "
+                                 "launches, not one per axis")
+        err = rel_err(out, ref)
+        abs_err = float((out - ref).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"pad-DFT kernel vs plain at {img} <- "
+                                 f"{grid} K={K}: rel_err {err:.3e}")
+        worst = max(worst, abs_err)
+        fields = dict(img="x".join(map(str, img)),
+                      grid="x".join(map(str, grid)), K=K,
+                      rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}")
+        del out, ref
+        if grid[0] == 320:
+            lib_err = rel_err(pad_idft_library(x, img), pad_idft_cuda(x, img))
+            if not lib_err <= 1e-5:
+                raise AssertionError(f"library route vs kernel: rel_err "
+                                     f"{lib_err:.3e}")
+            p1 = timed(lambda: pad_idft_reference(x, img), 3)
+            k1 = timed(lambda: pad_idft_cuda(x, img), 20)
+            lib = timed(lambda: pad_idft_library(x, img), 10)
+            k2 = timed(lambda: pad_idft_cuda(x, img), 20)
+            p2 = timed(lambda: pad_idft_reference(x, img), 3)
+            b_ms = pad_idft_bytes(img, grid, K) / HBM_BYTES_PER_S * 1e3
+            pass_ms = [b / HBM_BYTES_PER_S * 1e3
+                       for b in pad_idft_pass_bytes(img, grid, K)]
+            timing = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                          library_ms=lib, bound_ms=b_ms, bound_by="bytes")
+            fields.update(kernel_ms=f"{k1:.3f},{k2:.3f}",
+                          plain_ms=f"{p1:.3f},{p2:.3f}",
+                          library_ms=f"{lib:.3f}", bound_ms=f"{b_ms:.4f}",
+                          bound_by="bytes",
+                          share_of_bound=f"{b_ms / timing['ms']:.4f}",
+                          pass_floor_ms=",".join(f"{t:.4f}" for t in pass_ms),
+                          share_of_pass_floor=(
+                              f"{sum(pass_ms) / timing['ms']:.4f}"),
+                          rel_err_library=f"{lib_err:.3e}",
+                          launches=pad_idft_cuda.launches - at_start)
+            profile_solve("pad_idft_320^3_K8", lambda: pad_idft_cuda(x, img),
+                          kernel="kern_pad_idft")
+        log("pad_dft", t0, **fields)
+        del x
+        torch.cuda.empty_cache()
+    return worst, timing, pad_idft_cuda.launches - at_start
+
+
 def small_path_check():
     """A small recon on the GPU (kernel path) vs on the CPU (plain path)."""
     import torch
@@ -625,6 +727,7 @@ def phase_main_path():
     from indigo_tpu_torch.ops import spmm
     from indigo_tpu_torch.ops.dft_cuda import (
         LAUNCHES_PER_CALL, sense_normal_cuda, sense_normal_reference)
+    from indigo_tpu_torch.ops.pad_dft_cuda import pad_idft_cuda
     from indigo_tpu_torch.utils import rel_err
 
     small_path_check()
@@ -636,6 +739,7 @@ def phase_main_path():
 
     torch.cuda.reset_peak_memory_stats()
     sense_normal_cuda.launches = 0
+    pad_idft_cuda.launches = 0
     sense_normal_reference.cuda_calls = 0
     spmm.plain_cuda_calls = 0
     t0 = time.time()
@@ -654,13 +758,21 @@ def phase_main_path():
     log("simulate", t0, samples=y0.shape[0])
 
     per_solve = LAUNCHES_PER_CALL * ITERS * (NC // COIL_CHUNK)
+    # the rhs's adjoint pad-DFT: one kernel launch per image axis
+    per_rhs = 3
+    pad_at_init = pad_idft_cuda.launches
     times = []
     for i, y in enumerate(ys):
         t0 = time.time()
         before = sense_normal_cuda.launches
+        pad_before = pad_idft_cuda.launches
         x, res = recon(y, return_resids=True)
         times.append(time.time() - t0)
         grew = sense_normal_cuda.launches - before
+        if pad_idft_cuda.launches - pad_before != per_rhs:
+            raise AssertionError(
+                f"acquisition {i}: {pad_idft_cuda.launches - pad_before} "
+                f"pad-DFT launches in the rhs, expected {per_rhs}")
         if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
             raise AssertionError(f"acquisition {i}: residuals {res}")
         if x.shape != (N, N, N) or not np.all(np.isfinite(x)):
@@ -675,10 +787,15 @@ def phase_main_path():
 
     t0 = time.time()
     before = sense_normal_cuda.launches
+    pad_before = pad_idft_cuda.launches
     out = list(recon.stream(ys))
     t_stream = (time.time() - t0) / len(out)
     if sense_normal_cuda.launches - before != len(ys) * per_solve:
         raise AssertionError("stream launch count")
+    if pad_idft_cuda.launches - pad_before != len(ys) * per_rhs:
+        raise AssertionError(f"{pad_idft_cuda.launches - pad_before} "
+                             "pad-DFT launches in the stream, expected "
+                             f"{len(ys) * per_rhs}")
     if not all(o.shape == (N, N, N) and np.all(np.isfinite(o))
                for o in out):
         raise AssertionError("stream output not finite")
@@ -690,6 +807,10 @@ def phase_main_path():
     if sense_normal_cuda.launches != (len(ys) * 2 + 1) * per_solve:
         raise AssertionError(f"{sense_normal_cuda.launches} kernel launches "
                              "in the main path")
+    pad_launches = pad_idft_cuda.launches - pad_at_init
+    if pad_launches != (len(ys) * 2 + 1) * per_rhs:
+        raise AssertionError(f"{pad_launches} pad-DFT launches in the "
+                             "main path's requests")
     if sense_normal_reference.cuda_calls != 0 or spmm.plain_cuda_calls:
         raise AssertionError("the plain normal op or a plain SpMM ran on "
                              "the GPU")
@@ -702,12 +823,12 @@ def phase_main_path():
     print(f"[summary] first_s={times[0]:.3f} warm_s="
           f"{','.join(f'{t:.3f}' for t in times[1:])} stream_s_per_acq="
           f"{t_stream:.3f} launches={sense_normal_cuda.launches} "
-          f"pinned_copies={pinned} "
+          f"pad_idft_launches={pad_launches} pinned_copies={pinned} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
           flush=True)
     launches = sense_normal_cuda.launches
     profile_solve("serving", lambda: recon(ys[1]))
-    return launches, min(times[1:]) / ITERS, dict(
+    return launches, pad_launches, min(times[1:]) / ITERS, dict(
         recon=recon, y0=y0, y=ys[1], x_true=x_true)
 
 
@@ -3242,7 +3363,9 @@ def main():
     phase_build()
     import torch
     worst, timing = phase_kernels()
-    launches, serving_s_per_iter, serving = phase_main_path()
+    pad_worst, pad_timing, pad_launches = phase_pad_dft()
+    launches, main_pad, serving_s_per_iter, serving = phase_main_path()
+    pad_launches += main_pad
     # phase 12 runs on each lane's objects while they exist
     grads = dict(k1=0, k2=0, k3=0, k4=0)
     grad_part("serving", serving, grads)
@@ -3308,6 +3431,10 @@ def main():
         entry("ell_spmm_cuda (K4)", spmm_src, "indigo_tpu/ops/ell_spmm.py:61",
               k4_launches, spmm_rec["bell"]["max_abs_err"],
               spmm_rec["bell"]),
+        entry("pad_idft_cuda (adjoint pad-DFT, one pass per axis)",
+              "indigo_tpu_torch/csrc/pad_dft.cu",
+              "none (indigo_tpu/ops/dft_fft.py dft_nd_apply: XLA matmuls)",
+              pad_launches, pad_worst, pad_timing),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

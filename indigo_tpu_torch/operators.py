@@ -485,7 +485,9 @@ class CenteredDFT(Operator):
     Forward maps an image to the centered spectrum on the oversampled grid;
     the adjoint crops the inverse centered DFT back to the image. Each axis
     is one (g_d, n_d) complex matrix (``ops.dft_fft.centered_pad_dft_mat``)
-    with the fftshift checkerboards and the pad offset folded in.
+    with the fftshift checkerboards and the pad offset folded in. On the
+    card the adjoint runs the hand-written kernel of ``ops.pad_dft_cuda``
+    (one FFT pass per axis) wherever it plans the shapes.
     """
 
     def __init__(self, img_shape, grid_shape, name=None, device=None):
@@ -524,13 +526,26 @@ class CenteredDFT(Operator):
         key = "mi" if adjoint else "mf"
         return [getattr(self, f"{key}{d}") for d in range(len(self._img))]
 
+    def _adjoint(self, g):
+        """Image (K, *img) from the grid g (K, *grid): the hand-written
+        kernel (``ops.pad_dft_cuda``) where it serves these shapes on g's
+        device, the adjoint matrices otherwise (the CPU, other shapes)."""
+        from .ops.dft_fft import dft_nd_apply
+        from .ops.pad_dft_cuda import pad_dft_serves, pad_idft_cuda
+
+        if pad_dft_serves(self._img, self._grid, g.device):
+            return pad_idft_cuda(g.contiguous(), self._img)
+        return dft_nd_apply(g, self._mats(True))
+
     def apply(self, x, adjoint=False):
         from .ops.dft_fft import dft_nd_apply
 
         K = x.shape[1]
         src = self._grid if adjoint else self._img
         v = x.T.reshape((K,) + src).to(torch.complex64)
-        return dft_nd_apply(v, self._mats(adjoint)).reshape(K, -1).T
+        if adjoint:
+            return self._adjoint(v).reshape(K, -1).T
+        return dft_nd_apply(v, self._mats(False)).reshape(K, -1).T
 
     def cost(self, ncols=1):
         # stage d contracts g_d x n_d over a volume morphing img -> grid
@@ -556,7 +571,8 @@ class GridDFT(CenteredDFT):
     oversampled grid, then the KB gather — the chain the reference writes at
     ``operators.py`` (its ``dft_nd_apply`` + ``tile_interp_apply`` branch).
     Adjoint: the KB scatter onto the natural-order grid, then the adjoint
-    (conjugate-transposed) matrices. Requires the periodic no-halo tiling
+    pad-DFT (``CenteredDFT._adjoint``: the kernel on the card, the
+    conjugate-transposed matrices elsewhere). Requires the periodic no-halo tiling
     (``plan.ext == plan.grid_shape``), as the reference does; other grids
     take ``KBInterp * CenteredDFT`` (``models.sense.nufft_op``).
     """
@@ -596,8 +612,7 @@ class GridDFT(CenteredDFT):
             g = dft_nd_apply(v, self._mats(False))
             return kb_gather(self.corner, self.wkb, self._grid, g)
         g = kb_scatter(self.corner, self.wkb, self._grid, x)
-        v = dft_nd_apply(g, self._mats(True))
-        return v.reshape(K, -1).T
+        return self._adjoint(g).reshape(K, -1).T
 
     def cost(self, ncols=1):
         flops, bytes_ = super().cost(ncols)

@@ -2,7 +2,9 @@
 
 ``dft_fft``: per-axis matrix DFTs (torch); ``tile_interp``: KB gridding
 (torch); ``dft_cuda``: the Toeplitz SENSE normal op, a hand-written CUDA
-kernel with its plain version; ``ell_spmm``: the block-sparse SpMM kernels
+kernel with its plain version; ``pad_dft_cuda``: the adjoint centered
+pad-DFT of the gridding adjoint, a hand-written CUDA kernel with its plain
+version; ``ell_spmm``: the block-sparse SpMM kernels
 K3 (jag) and K4 (ELL); ``_build``: the nvcc/ctypes loader, which builds on
 first use only. :func:`spmm` dispatches a block-sparse product;
 :func:`set_spmm_impl` and :func:`use_pallas` keep the reference's names

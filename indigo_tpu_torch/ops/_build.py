@@ -117,10 +117,12 @@ def _declare(lib):
     lib.indigo_toeplitz_iz.argtypes = [P, P, P, I, P, I, I, I, I, I, P]
     lib.indigo_jag_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
     lib.indigo_ell_spmm.argtypes = [P, P, P, P, I, I, P, P, I, I, P]
+    lib.indigo_pad_idft.argtypes = [P, P, P, I, I, I, I, ctypes.c_longlong,
+                                    I, P]
     for fn in (lib.indigo_toeplitz_fz, lib.indigo_toeplitz_plane,
                lib.indigo_toeplitz_iz, lib.indigo_toeplitz_ring_planes,
                lib.indigo_jag_spmm,
-               lib.indigo_ell_spmm):
+               lib.indigo_ell_spmm, lib.indigo_pad_idft):
         fn.restype = I
     lib.indigo_error_string.argtypes = [I]
     lib.indigo_error_string.restype = ctypes.c_char_p

@@ -160,10 +160,12 @@ toeplitz_apply_reference.cuda_calls = 0
 def fft_factors(n: int):
     """(p, q) with n = p q: the two factors of the kernels' n-point FFT.
     p = 16 when 16 divides n, else 8 (radix-2 in registers); q = n / p
-    <= 32 (radix-2 in registers for 8 and 16, direct sums otherwise)."""
-    if n % 8 or not 8 <= n <= 256:
-        raise ValueError(f"no FFT plan for an axis of {n}")
+    <= 32 (radix-2 in registers for 8 and 16, direct sums otherwise).
+    K1/K2 take n <= 256 (:func:`supported`); the adjoint pad-DFT
+    (``ops.pad_dft_cuda``) takes every n this plans."""
     p = 16 if n % 16 == 0 else 8
+    if n % 8 or n < 8 or n // p > 32:
+        raise ValueError(f"no FFT plan for an axis of {n}")
     return p, n // p
 
 

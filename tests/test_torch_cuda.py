@@ -1047,3 +1047,124 @@ def test_recon_on_a_second_card_returns_its_image(second_card, monkeypatch):
         torch.cuda.synchronize(second_card)
         allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
     assert allocs[1] == allocs[0]
+
+
+# ---- the adjoint centered pad-DFT (csrc/pad_dft.cu) ----------------------
+
+# (img, grid, K): small 2D / 3D shapes over the factor plans, then the main
+# path's 320^3 -> 256^3 at 8 coils
+PAD_DFT_SHAPES = [((13, 31), (24, 40), 1), ((29, 51), (40, 64), 8),
+                  ((12, 16, 256), (16, 24, 320), 8),
+                  ((25, 7, 200), (32, 16, 256), 1),
+                  ((64, 60, 70), (80, 64, 80), 2),
+                  ((100, 128, 20), (128, 160, 32), 1),
+                  ((13, 301), (16, 512), 2),
+                  ((256, 256, 256), (320, 320, 320), 8)]
+
+
+def _pad_dft_case(cuda, img, grid, K, seed=20):
+    from indigo_tpu_torch.operators import CenteredDFT
+
+    x = torch.from_numpy(rand64c(K, *grid, rng=np.random.default_rng(seed)))
+    return x.to(cuda), CenteredDFT(img, grid, device=cuda)
+
+
+@pytest.mark.parametrize("img,grid,K", PAD_DFT_SHAPES)
+def test_pad_idft_kernel_matches_plain(cuda, img, grid, K):
+    from indigo_tpu_torch.ops.pad_dft_cuda import (
+        pad_idft_cuda, pad_idft_reference)
+
+    x, _ = _pad_dft_case(cuda, img, grid, K)
+    before = pad_idft_cuda.launches
+    out = pad_idft_cuda(x, img)
+    torch.cuda.synchronize()
+    assert pad_idft_cuda.launches == before + len(img)
+    assert out.shape == (K,) + img and out.is_contiguous()
+    assert rel_err(out, pad_idft_reference(x, img)) < 1e-5
+
+
+def test_pad_idft_launches_on_the_adjoint_only(cuda):
+    """One launch per axis on a GridDFT / CenteredDFT adjoint apply on the
+    card; none on a forward apply or on the CPU."""
+    from indigo_tpu_torch.operators import GridDFT
+    from indigo_tpu_torch.ops.pad_dft_cuda import pad_idft_cuda
+    from indigo_tpu_torch.ops.tile_interp import plan_tile_interp
+
+    rng = np.random.default_rng(21)
+    img = (32, 32, 32)
+    coords = rng.uniform(-0.5, 0.5, (500, 3))
+    plan = plan_tile_interp(coords, (40, 40, 40), width=4, beta=6.5)
+    G = GridDFT(plan, img, device=cuda)
+    Gc = GridDFT(plan, img, device="cpu")
+    y = torch.from_numpy(rand64c(plan.n_samples, 2, rng=rng))
+    before = pad_idft_cuda.launches
+    xa = G.apply(y.to(cuda), adjoint=True)
+    assert pad_idft_cuda.launches == before + 3
+    assert rel_err(xa, Gc.apply(y, adjoint=True)) < 1e-5
+    G.apply(xa)
+    Gc.apply(y, adjoint=True)
+    assert pad_idft_cuda.launches == before + 3
+    x, D = _pad_dft_case(cuda, (13, 31), (24, 40), 3)
+    D.apply(x.reshape(3, -1).T, adjoint=True)
+    assert pad_idft_cuda.launches == before + 5
+
+
+def test_pad_idft_gradient_matches_plain(cuda):
+    """The Function's gradient (the forward pad-DFT on the cotangent)
+    against autograd through the plain version; no launch in backward."""
+    from indigo_tpu_torch.ops.pad_dft_cuda import (
+        pad_idft_cuda, pad_idft_reference)
+
+    img, grid = (29, 51), (40, 64)
+    x0, _ = _pad_dft_case(cuda, img, grid, 2)
+    g = torch.from_numpy(rand64c(2, *img, rng=np.random.default_rng(22)))
+    g = g.to(cuda)
+    grads = []
+    for f in (pad_idft_cuda, pad_idft_reference):
+        x = x0.clone().requires_grad_(True)
+        out = f(x, img)
+        assert out.grad_fn is not None
+        before = pad_idft_cuda.launches
+        out.backward(g)
+        assert pad_idft_cuda.launches == before
+        grads.append(x.grad)
+    assert rel_err(grads[0], grads[1]) < 1e-5
+
+
+def test_pad_idft_rejects_what_it_does_not_take(cuda):
+    from indigo_tpu_torch.ops.pad_dft_cuda import pad_idft_cuda
+
+    x, _ = _pad_dft_case(cuda, (13, 31), (24, 40), 2)
+    with pytest.raises(TypeError):
+        pad_idft_cuda(x.to(torch.complex128), (13, 31))
+    with pytest.raises(ValueError):
+        pad_idft_cuda(x.transpose(1, 2), (31, 13))
+    with pytest.raises(ValueError):
+        pad_idft_cuda(x, (13, 41))                  # n > g
+    y, _ = _pad_dft_case(cuda, (13, 13), (20, 20), 1)
+    with pytest.raises(ValueError):
+        pad_idft_cuda(y, (13, 13))                  # g 20 has no plan
+
+
+def test_recon_rhs_on_the_card_matches_the_plain_route(cuda, monkeypatch):
+    """SenseRecon.rhs through the kernel against the same pipeline with the
+    predicate refusing every shape (the adjoint matrices on the card)."""
+    from indigo_tpu_torch.models import SenseRecon
+    from indigo_tpu_torch.ops import pad_dft_cuda
+
+    rng = np.random.default_rng(23)
+    n, nc = 32, 4
+    dirs = rng.standard_normal((256, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    r = (np.arange(32) - 16) / 32
+    traj = (dirs[:, None, :] * r[None, :, None]).reshape(-1, 3)
+    maps = (0.5 + rand64c(nc, n, n, n, rng=rng) * 0.1).astype(np.complex64)
+    rec = SenseRecon(traj, maps, device="cuda", oversamp=1.25, width=4,
+                     iters=4)
+    y = rand64c(nc * len(traj), rng=rng)
+    before = pad_dft_cuda.pad_idft_cuda.launches
+    b = rec.rhs(y)
+    assert pad_dft_cuda.pad_idft_cuda.launches == before + 3
+    monkeypatch.setattr(pad_dft_cuda, "pad_dft_serves", lambda *a: False)
+    assert rel_err(b, rec.rhs(y)) < 1e-5
+    assert pad_dft_cuda.pad_idft_cuda.launches == before + 3

@@ -23,6 +23,7 @@ def _sources():
 def test_import_leaves_jax_out():
     code = ("import sys, indigo_tpu_torch, indigo_tpu_torch.models, "
             "indigo_tpu_torch.ops.dft_cuda, indigo_tpu_torch.convert, "
+            "indigo_tpu_torch.ops.pad_dft_cuda, "
             "indigo_tpu_torch.sparse, indigo_tpu_torch.solvers, "
             "indigo_tpu_torch.ops.ell_spmm, indigo_tpu_torch.toeplitz, "
             "indigo_tpu_torch.noncart, indigo_tpu_torch.ops.toeplitz_fft, "

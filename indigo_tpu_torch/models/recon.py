@@ -36,15 +36,17 @@ def _jacobi(Tf, maps, lamda):
 
 
 def host_copy(x):
-    """Enqueue the copy of tensor ``x`` to host memory; ``host_array`` of
-    the result waits for it and gives the numpy array. From a CUDA tensor
-    the copy lands in page-locked memory from torch's caching host
-    allocator (``non_blocking``, then an event on the stream that copies:
-    the current stream of ``x``'s card, whichever card is current); the
-    array owns that block, which goes back to torch's pinned cache when the
-    caller drops it, and the cache keeps it for later copies. From a CPU
-    tensor the array is the tensor's own memory. Each copy counts once, in
+    """Enqueue the copy of tensor ``x`` to host memory; ``host_array`` of the
+    result waits for it and gives the numpy array; the copy carries no
+    graph (``x.detach()``). From a CUDA tensor the copy lands in
+    page-locked memory from torch's caching host allocator
+    (``non_blocking``, then an event on the stream that copies: the current
+    stream of ``x``'s card, whichever card is current); the array owns that
+    block, which goes back to torch's pinned cache when the caller drops
+    it, and the cache keeps it for later copies. From a CPU tensor the
+    array is the tensor's own memory. Each copy counts once, in
     ``host_copy.pinned_copies`` or in ``host_copy.pageable_copies``."""
+    x = x.detach()
     if x.device.type == "cuda":
         host_copy.pinned_copies += 1
         buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -66,6 +68,71 @@ def host_array(pending):
     if ev is not None:
         ev.synchronize()
     return buf.numpy()
+
+
+class _BackwardSpans:
+    """The spans of one request's backward, opened and closed by hooks on
+    the tensors of the graph its forward built: the image's cotangent
+    entering opens ``indigo.backward`` and ``indigo.solve_bwd``; the rhs's
+    gradient closes the solve's and opens ``indigo.rhs_bwd``; the k-space
+    gradient closes both. Every span carries the forward's request id,
+    whichever thread runs the backward. While the forward runs,
+    ``saved_tensors_hooks(self.pack, self.unpack)`` sums the storages
+    autograd saves for the graph, the pipeline's own buffers left out:
+    ``indigo.backward``'s attr ``saved_bytes``."""
+
+    def __init__(self, rid, buffers):
+        self.rid, self.open, self.saved = rid, [], {}
+        self.keep = {b.untyped_storage().data_ptr() for b in buffers}
+
+    def pack(self, t):
+        """Count ``t``'s storage; keep ``t`` without its graph. A saved
+        output comes with its own node as ``grad_fn``: kept so, it would
+        hold that node in a cycle that outlives the request where the
+        backward never runs the node (CG's residual history)."""
+        st = t.untyped_storage()
+        if st.data_ptr() not in self.keep:
+            self.saved[st.data_ptr()] = st.nbytes()
+        return t.detach()
+
+    @staticmethod
+    def unpack(t):
+        return t
+
+    def solve(self, rec, y):
+        """``rec.solve(rec.rhs(y))`` with the hooks on its graph: on a view
+        of y, on the rhs and on the image."""
+        y = y.view_as(y)
+        y.register_hook(self.samples)
+        with torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                      self.unpack):
+            b = rec.rhs(y)
+            b.register_hook(self.rhs)
+            x, resids, k = rec.solve(b)
+        x.register_hook(self.image)
+        return x, resids, k
+
+    def _enter(self, name, **attrs):
+        ctx = tracing.span(name, **attrs)
+        sp = ctx.__enter__()
+        if sp is not None:
+            sp.request = self.rid
+        self.open.append(ctx)
+
+    def _exit(self):
+        self.open.pop().__exit__(None, None, None)
+
+    def image(self, g):
+        self._enter("indigo.backward", saved_bytes=sum(self.saved.values()))
+        self._enter("indigo.solve_bwd")
+
+    def rhs(self, g):
+        self._exit()
+        self._enter("indigo.rhs_bwd")
+
+    def samples(self, g):
+        self._exit()
+        self._exit()
 
 
 class SenseRecon(nn.Module):
@@ -293,12 +360,22 @@ class SenseRecon(nn.Module):
         the pipeline's device without waiting for it.
         ``last_iters`` is fetched lazily on first read. Each call takes the
         pipeline's next request id, which its spans carry (``tracing``).
+
+        A y tensor that requires grad, with grad mode on, gives an image
+        that carries the graph (output 'device'); its backward records
+        ``indigo.backward`` > ``indigo.solve_bwd`` and ``indigo.rhs_bwd``
+        under the call's request id (``_BackwardSpans``).
         """
         if output not in ("host", "device"):
             raise ValueError(f"unknown output {output!r}")
         self._request += 1
         with tracing.request(self._request):
-            x, resids, k = self.solve(self.rhs(y))
+            if torch.is_grad_enabled() and isinstance(
+                    y, torch.Tensor) and y.requires_grad:
+                x, resids, k = _BackwardSpans(
+                    self._request, self.buffers()).solve(self, y)
+            else:
+                x, resids, k = self.solve(self.rhs(y))
             self._last_k = k
             x = x.reshape(self.img_shape)
             if output == "host":

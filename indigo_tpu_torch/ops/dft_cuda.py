@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from . import _refuse_operator_grad
 from .dft_fft import block_spectrum, toeplitz_apply_block
 
@@ -379,8 +380,10 @@ class _SenseNormalFn(torch.autograd.Function):
     """out = N v, differentiable in v, for the Hermitian N of K1 (``maps``
     given) or K2 (``maps`` None). ``launch(Tf, v, maps, events)`` computes
     N v: :func:`_run` on the card, a plain version in the CPU tests. The
-    backward is N^H g = N g, one more launch on the cotangent; ``events``
-    time the forward only."""
+    backward is N^H g = N g, one more launch on the cotangent, in a span
+    with attr ``backward=True`` (``indigo.normal_op`` for K1,
+    ``indigo.toeplitz`` for K2) and counted in the wrapper's
+    ``backward_calls``; ``events`` time the forward only."""
 
     @staticmethod
     def forward(ctx, launch, Tf, maps, v, events=None):
@@ -392,8 +395,12 @@ class _SenseNormalFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         Tf, maps = ctx.saved_tensors
-        return None, None, None, ctx.launch(Tf, g.contiguous(), maps,
-                                            None), None
+        k1 = maps is not None
+        (sense_normal_cuda if k1 else toeplitz_apply_cuda).backward_calls += 1
+        with tracing.span("indigo.normal_op" if k1 else "indigo.toeplitz",
+                          backward=True):
+            gv = ctx.launch(Tf, g.contiguous(), maps, None)
+        return None, None, None, gv, None
 
 
 def sense_normal_cuda(Tf, maps, v, events=None):
@@ -409,7 +416,8 @@ def sense_normal_cuda(Tf, maps, v, events=None):
     ``events``: optional ``LAUNCHES_PER_CALL + 1`` ``torch.cuda.Event``s
     recorded before the first kernel and after each, for per-kernel timing.
     Counts: ``launches`` (kernels), ``plane_calls`` (calls that ran the
-    plane pass, every call the kernels take).
+    plane pass, every call the kernels take, the backward's too),
+    ``backward_calls`` (backward launches on a cotangent).
     """
     if v.device.type == "cpu":
         return sense_normal_reference(Tf, maps, v)
@@ -420,6 +428,7 @@ def sense_normal_cuda(Tf, maps, v, events=None):
 
 sense_normal_cuda.launches = 0
 sense_normal_cuda.plane_calls = 0
+sense_normal_cuda.backward_calls = 0
 
 
 def toeplitz_apply_cuda(Tf, u, events=None):
@@ -431,7 +440,7 @@ def toeplitz_apply_cuda(Tf, u, events=None):
     (B, n1, n2, n3) complex64. CPU tensors run the plain version; anything
     else the kernels do not take raises (a non-contiguous u is never copied
     here). Gradients in u: as for :func:`sense_normal_cuda`, with K2.
-    ``events``, ``launches``, ``plane_calls``: as for
+    ``events``, ``launches``, ``plane_calls``, ``backward_calls``: as for
     :func:`sense_normal_cuda`.
     """
     if u.device.type == "cpu":
@@ -443,3 +452,4 @@ def toeplitz_apply_cuda(Tf, u, events=None):
 
 toeplitz_apply_cuda.launches = 0
 toeplitz_apply_cuda.plane_calls = 0
+toeplitz_apply_cuda.backward_calls = 0

@@ -173,7 +173,8 @@ def _run(x, img_shape):
 class _PadIdftFn(torch.autograd.Function):
     """The adjoint pad-DFT, differentiable in x: ``launch(x, img_shape)``
     computes it; the backward applies the forward matrices (the adjoint's
-    adjoint) to the cotangent."""
+    adjoint) to the cotangent and adds one to
+    ``pad_idft_cuda.backward_calls``."""
 
     @staticmethod
     def forward(ctx, launch, x, img_shape):
@@ -183,6 +184,7 @@ class _PadIdftFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        pad_idft_cuda.backward_calls += 1
         return None, dft_nd_apply(g.contiguous(),
                                   _mats(*ctx.shapes, g.device, False)), None
 
@@ -192,9 +194,10 @@ def pad_idft_cuda(x, img_shape):
 
     CUDA tensors launch the kernel, one launch per axis
     (``pad_idft_cuda.launches``), through an autograd Function whose
-    backward applies the forward matrices. x must be contiguous, and the
-    shapes ones :func:`pad_dft_serves` takes; anything else raises. CPU
-    tensors run the plain version."""
+    backward applies the forward matrices (``pad_idft_cuda.backward_calls``
+    counts them). x must be contiguous, and the shapes ones
+    :func:`pad_dft_serves` takes; anything else raises. CPU tensors run the
+    plain version."""
     img_shape = tuple(int(s) for s in img_shape)
     if x.device.type == "cpu":
         return pad_idft_reference(x, img_shape)
@@ -203,3 +206,4 @@ def pad_idft_cuda(x, img_shape):
 
 
 pad_idft_cuda.launches = 0
+pad_idft_cuda.backward_calls = 0

@@ -41,12 +41,25 @@ The spans of the port, by layer:
   K2 or the plain round trip with the batch-leading copies in and out;
   attrs ``K``, the batch, and ``method``);
 * boundary out: ``indigo.egress`` (the image to host memory);
+* backward (a ``SenseRecon`` call whose k-space requires grad, hooks on
+  its graph; every span with the forward's request id, on whichever
+  thread autograd runs it): ``indigo.backward`` (from the image's
+  cotangent entering the graph to the k-space gradient; attr
+  ``saved_bytes``, the storages autograd saved for the graph, the
+  pipeline's buffers left out) > ``indigo.solve_bwd`` (CG's reverse, from
+  the image's cotangent to the rhs's; each K1 launch on a cotangent inside
+  it is an ``indigo.normal_op`` with attr ``backward=True``, a K2 one an
+  ``indigo.toeplitz``) and ``indigo.rhs_bwd`` (the rhs's reverse: the
+  adjoint pad-DFT's gradient, the gridding's gather, the weight and the
+  permutation);
 * set-up: ``indigo.init`` > ``indigo.init.dcf`` / ``.plan`` /
   ``.toeplitz`` / ``.setup`` (``SenseRecon.__init__``; ``from_arrays``
   records ``indigo.init`` and ``.setup``).
 
 A tree solve thus records ``indigo.solve`` > (``indigo.normal_op``,
-``indigo.cg_iter`` > ``indigo.normal_op``) > ``indigo.toeplitz``.
+``indigo.cg_iter`` > ``indigo.normal_op``) > ``indigo.toeplitz``, and the
+backward of a ``SenseRecon`` call on the card ``indigo.backward`` >
+(``indigo.solve_bwd`` > ``indigo.normal_op``, ``indigo.rhs_bwd``).
 
 This module imports torch only, so that any module of the port can import
 it.
